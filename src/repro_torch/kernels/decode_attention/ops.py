@@ -1,0 +1,53 @@
+"""Public wrappers: one-token decode attention over a (B, T, KV, hd) cache.
+
+The entry point ``models/attention.py::decode_attention`` routes through.
+The TPU layout (``repro``'s ``ops.py``) flattens (batch, KV head) pairs
+onto the kernel's stream grid and stacks each KV head's G query heads on
+the stream's q rows; the CUDA kernel does the same by index arithmetic on
+the model's own tensors (one block per (row, KV head), the G heads as its
+query rows), so no transposed copy of the cache is made per step.
+
+Routing: a CUDA tensor launches the kernel, a CPU tensor runs the plain
+blocked version (:func:`.ref.decode_attention_blocked`); see
+:mod:`repro_torch.kernels.common`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import uses_kernel
+
+from .kernel import decode_attention_cuda
+from .ref import decode_attention_blocked
+
+
+def write_kv(cache_k, cache_v, k_new, v_new, pos):
+    """Insert the decode step's new K/V row at each sequence's ``pos``.
+
+    cache_k/v (B, T, KV, hd[_v]); k_new/v_new (B, 1, KV, hd[_v]); pos (B,).
+    Writes **in place** (the JAX reference returns updated copies) and
+    returns the same tensors.
+    """
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    p = pos.to(torch.int64)
+    cache_k[rows, p] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[rows, p] = v_new[:, 0].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def decode_attention(q, k, v, *, pos):
+    """Single-query grouped attention over a padded cache (see ref.py).
+
+    q (B, 1, H, hd); k/v (B, T, KV, hd) with KV dividing H; pos (B,) int —
+    row b attends to cache positions ``≤ pos[b]``.  Returns (B, 1, H, hd)
+    in q's dtype.
+    """
+    b, _, h, hd = q.shape
+    kv = k.shape[2]
+    if not uses_kernel(q):
+        qg = q[:, 0].reshape(b, kv, h // kv, hd)
+        out = decode_attention_blocked(qg, k, v, pos)
+        return out.reshape(b, 1, h, v.shape[-1]).to(q.dtype)
+    pos = pos.to(device=q.device, dtype=torch.int32).contiguous()
+    return decode_attention_cuda(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), pos)

@@ -1,0 +1,72 @@
+"""Plain PyTorch versions of the ragged flash-decode kernel.
+
+Semantics: one new query row per sequence, scored against cache positions
+``≤ pos[b]`` of a capacity-padded KV cache; anything beyond ``pos`` is
+padding and ignored.
+
+:func:`decode_attention_blocked` is the kernel's plain version (the CPU
+path): an online softmax over **fixed-size** KV blocks whose trip count is
+``max(pos) // block + 1``.  The block size is not a function of the padded
+capacity, and masked tails contribute exact zeros, so a row's output is
+bit-invariant to how much padding its cache carries.
+:func:`decode_attention_ref` is the dense oracle.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import pad_axis, round_up
+
+NEG_INF = -1e30
+DECODE_BLOCK = 256        # fixed KV block; independent of padded capacity
+
+
+def decode_attention_blocked(q, k, v, pos, *, block: int = DECODE_BLOCK):
+    """Grouped single-query attention, online softmax over KV blocks.
+
+    q (B, KV, G, hd); k/v (B, T, KV, hd[_v]); pos (B,) int →
+    (B, KV, G, hd_v) float32.  Blocks past every row's ``pos`` are never
+    touched (pack-level early exit; the kernel sharpens this to per-row).
+    """
+    b, kv, g, hd = q.shape
+    t = k.shape[1]
+    hd_v = v.shape[3]
+    t_pad = round_up(t, block)
+    if t_pad != t:                                       # mask covers the pad
+        k = pad_axis(k, 1, t_pad)
+        v = pad_axis(v, 1, t_pad)
+    qf = q.float() * (hd ** -0.5)
+    pos = pos.to(torch.int64)
+    m = torch.full((b, kv, g), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv, g, hd_v), dtype=torch.float32, device=q.device)
+    n_live = int(pos.max()) // block + 1
+    for i in range(n_live):
+        # contiguous per-block copies: the reduction sees the same memory
+        # layout whatever the padded capacity T is
+        kc = k[:, i * block:(i + 1) * block].float().contiguous()
+        vc = v[:, i * block:(i + 1) * block].float().contiguous()
+        sc = torch.einsum("bkgd,btkd->bkgt", qf, kc)
+        k_pos = i * block + torch.arange(block, device=q.device)
+        valid = k_pos[None, :] <= pos[:, None]            # (B, block)
+        sc = torch.where(valid[:, None, None, :], sc,
+                         torch.tensor(NEG_INF, device=q.device))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgt,btkd->bkgd", p, vc)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def decode_attention_ref(q, k, v, pos):
+    """Dense oracle: full-T scores, fp32 math, same shapes as blocked."""
+    b, kv, g, hd = q.shape
+    t = k.shape[1]
+    sc = torch.einsum("bkgd,btkd->bkgt", q.float(), k.float()) * (hd ** -0.5)
+    valid = torch.arange(t, device=q.device)[None, :] <= pos.to(torch.int64)[:, None]
+    sc = torch.where(valid[:, None, None, :], sc,
+                     torch.tensor(NEG_INF, device=q.device))
+    prob = torch.softmax(sc, dim=-1)
+    return torch.einsum("bkgt,btkd->bkgd", prob, v.float())

@@ -1,0 +1,51 @@
+"""ctypes binding of ``csrc/extend_attention.cu`` and its launch counter."""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import CudaKernel
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "extend_attention.cu"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the kernel; ``KERNEL.launches`` counts launches on the card
+KERNEL = CudaKernel(SOURCE, "repro_extend_attention",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     ctypes.c_float, _I, _P])
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def extend_attention_cuda(q, k, v, t_real):
+    """Launch the kernel: q (B, nb, H, hd); k/v (B, T, KV, hd); ``t_real`` a
+    0-d int32 CUDA tensor.  Returns (B, nb, H, hd) in q's dtype."""
+    b, nb, h, hd = q.shape
+    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k/v must be (B, T, KV, {hd}) like q's batch; "
+                         f"got k {tuple(k.shape)}, v {tuple(v.shape)}")
+    t, kv = k.shape[1], k.shape[2]
+    if h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not built; have {HEAD_DIMS}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one of {list(DTYPES)}; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("k/v must start on a 16-byte boundary (the kernel "
+                         "reads them with 16-byte loads)")
+    if not (isinstance(t_real, torch.Tensor) and t_real.dtype == torch.int32
+            and t_real.numel() == 1 and t_real.device == q.device):
+        raise TypeError("t_real must be a one-element int32 tensor on "
+                        f"{q.device}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           t_real.data_ptr(), b, nb, h, kv, t, hd, hd ** -0.5,
+           DTYPES[q.dtype], stream)
+    return out

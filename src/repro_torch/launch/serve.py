@@ -1,0 +1,153 @@
+"""Serving driver of the PyTorch port: descriptor-planned prefix reuse,
+single session over one document.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-67b \
+      --reduced --doc-len 2048 --requests 8 --new-tokens 16
+
+runs on the CUDA device; ``--device cpu`` runs the same path on the CPU
+(the kernels' plain versions).  The flags are those of
+``python -m repro.launch.serve``; the ones whose features the port does
+not have yet raise ``NotImplementedError`` naming the ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+#: (flag, attribute, value meaning "off", ROADMAP.md §1 item) of features
+#: the port does not implement yet
+_NOT_PORTED = (
+    ("--sessions", "sessions", 1, "item 4 (batched serving)"),
+    ("--edit-every", "edit_every", 0, "item 4 (multi-session edit traffic)"),
+    ("--edit-kind", "edit_kind", "random", "item 4 (multi-session edit traffic)"),
+    ("--edit-span", "edit_span", 16, "item 4 (multi-session edit traffic)"),
+    ("--store-dir", "store_dir", "", "item 6 (persistence)"),
+    ("--snapshot-every", "snapshot_every", 0, "item 6 (persistence)"),
+    ("--compact-final", "compact_final", False, "item 6 (persistence)"),
+    ("--host-budget", "host_budget", 0, "item 6 (residency tiers)"),
+    ("--spill-dir", "spill_dir", "", "item 6 (residency tiers)"),
+    ("--tier-policy", "tier_policy", None, "item 6 (residency tiers)"),
+    ("--segment-precision", "segment_precision", None, "item 6 (int8 residency)"),
+    ("--shards", "shards", 1, "item 7 (sharding)"),
+    ("--shard-bw", "shard_bw", 2e9, "item 7 (sharding)"),
+    ("--shard-rtt", "shard_rtt", 1e-3, "item 7 (sharding)"),
+    ("--hedge-deadline", "hedge_deadline", None, "item 7 (sharding)"),
+)
+
+
+def check_ported(args) -> None:
+    for flag, attr, off, item in _NOT_PORTED:
+        if getattr(args, attr) != off:
+            raise NotImplementedError(
+                f"{flag} is not ported to repro_torch yet: ROADMAP.md §1 {item}")
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "repro_torch.launch.serve: no CUDA device is available; pass "
+            "--device cpu to run the port on the CPU")
+    return device
+
+
+def run_single(args, cfg, model, params, rng, device) -> None:
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.session import doc_key
+
+    doc = rng.integers(0, cfg.vocab_size, args.doc_len).astype(np.int32)
+    budget = args.byte_budget if args.byte_budget > 0 else None
+    eng = ServeEngine(model, params, doc, chunk_tokens=args.chunk_tokens,
+                      doc_id=doc_key(doc), byte_budget=budget,
+                      eviction_policy=args.eviction_policy, device=device)
+    for i in range(args.requests):
+        L = int(rng.integers(args.doc_len // 4, args.doc_len))
+        toks, plan = eng.generate(L, args.new_tokens, greedy=False, seed=i)
+        print(f"req {i}: prefix {L:6d}  reused-models {len(plan.models_used):3d}  "
+              f"tokens {toks[:8]}…")
+    s = eng.stats
+    print(f"\n{s.requests} requests: reuse {s.reuse_frac:.1%} "
+          f"({s.tokens_reused} reused / {s.tokens_computed} computed), "
+          f"planner {s.planner_s*1e3:.1f} ms total, prefill {s.prefill_s:.2f}s, "
+          f"decode {s.decode_s:.2f}s, store {len(eng.store)} segments "
+          f"({eng.store.nbytes()/1e6:.1f} MB)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (default cuda; 'cpu' runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("--doc-len", type=int, default=1024)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--chunk-tokens", type=int, default=128)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sessions", type=int, default=1,
+                    help=">1 switches to the multi-session batched engine "
+                         "(not ported yet)")
+    ap.add_argument("--shared-docs", type=int, default=2,
+                    help="multi-session only: sessions serving one document")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="multi-session only: decode batch limit")
+    ap.add_argument("--byte-budget", type=int, default=0,
+                    help="segment-store budget in bytes (0 = unbounded)")
+    ap.add_argument("--eviction-policy", choices=["cost", "lru"], default=None,
+                    help="victim selection under --byte-budget: cost-model "
+                         "benefit-per-byte (default) or global LRU")
+    ap.add_argument("--no-decode-materialize", action="store_true",
+                    help="multi-session only: no decode write-back")
+    ap.add_argument("--async-prefill", dest="async_prefill",
+                    action="store_true", default=None,
+                    help="multi-session only: pipelined prefix builds")
+    ap.add_argument("--sync-prefill", dest="async_prefill",
+                    action="store_false",
+                    help="multi-session only: blocking prefix builds")
+    ap.add_argument("--edit-every", type=int, default=0)
+    ap.add_argument("--edit-kind", choices=["insert", "delete", "replace",
+                                            "random"], default="random")
+    ap.add_argument("--edit-span", type=int, default=16)
+    ap.add_argument("--store-dir", default="")
+    ap.add_argument("--snapshot-every", type=int, default=0)
+    ap.add_argument("--host-budget", type=int, default=0)
+    ap.add_argument("--spill-dir", default="")
+    ap.add_argument("--tier-policy", choices=["tiered", "evict"], default=None)
+    ap.add_argument("--segment-precision", choices=["auto", "fp32", "int8"],
+                    default=None)
+    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--shard-bw", type=float, default=2e9)
+    ap.add_argument("--shard-rtt", type=float, default=1e-3)
+    ap.add_argument("--hedge-deadline", type=float, default=None)
+    ap.add_argument("--background-saves", dest="background_saves",
+                    action="store_true", default=True)
+    ap.add_argument("--sync-saves", dest="background_saves",
+                    action="store_false")
+    ap.add_argument("--compact-final", action="store_true")
+    return ap
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    device = resolve_device(args.device)
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import LM
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    model = LM(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = model.init(gen)
+    rng = np.random.default_rng(args.seed)
+    run_single(args, cfg, model, params, rng, device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

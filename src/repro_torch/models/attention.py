@@ -1,0 +1,148 @@
+"""GQA attention: blocked-softmax prefill path + cached extend/decode paths.
+
+Prefill uses an online-softmax loop over KV blocks in plain PyTorch ops:
+peak activation is O(S·block) instead of O(S²), and KV heads stay
+unexpanded — scores are computed in grouped form (B, KV, G, S, block).
+The extend and decode paths attend over a capacity-padded KV cache through
+the port's hand-written kernels (``kernels/extend_attention``,
+``kernels/decode_attention``) on the card, and their plain versions on the
+CPU.
+
+Caches are updated **in place** here (the JAX reference returns new
+arrays): ``seq_update`` and ``write_kv`` write into the cache tensors they
+are given, which are views into the caller's layer-stacked cache.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.extend_attention import ops as extend_ops
+
+from .common import apply_rope, proj_heads, proj_out, rms_norm, rope_angles
+
+NEG_INF = -1e30
+
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor       # (d, H, hd)
+    wk: torch.Tensor       # (d, KV, hd)
+    wv: torch.Tensor       # (d, KV, hd)
+    wo: torch.Tensor       # (H, hd, d)
+    q_norm: Optional[torch.Tensor] = None  # (hd,)
+    k_norm: Optional[torch.Tensor] = None
+
+
+def _project_qkv(p: AttnParams, x, kv_x, q_pos, k_pos, theta,
+                 qk_norm_eps=1e-6, rope=True):
+    q = proj_heads(x, p.wq)            # (B, S, H, hd)
+    k = proj_heads(kv_x, p.wk)         # (B, T, KV, hd)
+    v = proj_heads(kv_x, p.wv)
+    if p.q_norm is not None:
+        q = rms_norm(q, p.q_norm, qk_norm_eps)
+        k = rms_norm(k, p.k_norm, qk_norm_eps)
+    if rope:
+        qc, qs = rope_angles(q_pos, q.shape[-1], theta)
+        kc, ks = rope_angles(k_pos, k.shape[-1], theta)
+        q = apply_rope(q, qc, qs)
+        k = apply_rope(k, kc, ks)
+    return q, k, v
+
+
+def _grouped(q, n_kv):
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, hd)
+
+
+def blocked_attention(q, k, v, q_pos, k_pos, *, causal: bool, block: int = 512):
+    """Online softmax over KV blocks.  q (B,S,H,hd); k/v (B,T,KV,hd).
+
+    Operands keep their dtype into each product with fp32 accumulation
+    (bf16 scores at full width); softmax statistics are fp32.
+    """
+    b, s, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    g = h // kv
+    block = min(block, t)
+    if t % block != 0:   # smoke-scale fallback: single block
+        block = t
+    qg = _grouped(q, kv).float()                          # (B,S,KV,G,hd)
+    scale = hd ** -0.5
+    m = torch.full((b, kv, g, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kv, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kv, g, s, hd_v), dtype=torch.float32, device=q.device)
+    qp = q_pos if q_pos.ndim == 2 else q_pos[None]
+    for i in range(t // block):
+        kblk = k[:, i * block:(i + 1) * block]
+        vblk = v[:, i * block:(i + 1) * block]
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, kblk.float()) * scale
+        if causal:
+            pblk = k_pos[..., i * block:(i + 1) * block]
+            kp = pblk if pblk.ndim == 2 else pblk[None]
+            mask = qp[:, None, None, :, None] >= kp[:, None, None, None, :]
+            sc = torch.where(mask, sc, torch.tensor(NEG_INF, device=q.device))
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bkgst,btkd->bkgsd", p.to(vblk.dtype).float(),
+                          vblk.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]       # (B,KV,G,S,hd_v)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd_v)
+    return out.to(q.dtype)
+
+
+def seq_update(cache, new, start):
+    """Write ``new`` into ``cache`` along the sequence axis (1) at ``start``,
+    **in place**.  ``start`` may be a 0-d device tensor (no host sync); the
+    caller guarantees ``start + new.shape[1] <= cache.shape[1]``."""
+    idx = start + torch.arange(new.shape[1], device=cache.device)
+    cache.index_copy_(1, idx, new.to(cache.dtype))
+    return cache
+
+
+def extend_attention_cached(p: AttnParams, h, cache_k, cache_v, positions,
+                            start, *, theta: float):
+    """Extend-path self-attention over a capacity-padded KV cache.
+
+    h (B, nb, d) is the chunk's normed hidden state; cache_k/v (B, cap, KV,
+    hd) hold valid KV for [0, start).  The chunk's K/V are written in place
+    at [start, start+nb) and its queries attend causally over the result
+    through the extend kernel (``t_real = start + nb``); anything beyond
+    start+nb is garbage the mask excludes.  ``start`` is a 0-d integer
+    tensor on the cache's device.  Returns (projected out, (cache_k,
+    cache_v)).
+    """
+    nb = h.shape[1]
+    q, k_new, v_new = _project_qkv(p, h, h, positions, positions, theta)
+    seq_update(cache_k, k_new, start)
+    seq_update(cache_v, v_new, start)
+    out = extend_ops.extend_attention(q, cache_k, cache_v, t_real=start + nb)
+    return proj_out(out, p.wo), (cache_k, cache_v)
+
+
+def self_attention(p: AttnParams, x, positions, *, causal: bool, theta: float,
+                   block: int = 512):
+    """Full self-attention for prefill.  Returns (out, (k, v) cacheable)."""
+    q, k, v = _project_qkv(p, x, x, positions, positions, theta)
+    out = blocked_attention(q, k, v, positions, positions, causal=causal,
+                            block=block)
+    return proj_out(out, p.wo), (k, v)
+
+
+def decode_attention(p: AttnParams, x, cache_k, cache_v, pos, *, theta: float):
+    """One-step decode.  x (B,1,d); cache (B,T,KV,hd); pos (B,) int32.
+
+    Writes the new K/V at ``pos`` (in place) and attends over positions
+    ≤ pos through the ragged flash-decode kernel, whose output is
+    bit-invariant to the cache's padded capacity.
+    """
+    q, k_new, v_new = _project_qkv(p, x, x, pos[:, None], pos[:, None], theta)
+    decode_ops.write_kv(cache_k, cache_v, k_new, v_new, pos)
+    out = decode_ops.decode_attention(q, cache_k, cache_v, pos=pos)
+    return proj_out(out.to(x.dtype), p.wo), (cache_k, cache_v)

@@ -1,0 +1,107 @@
+"""Shared model machinery: cache-leaf taxonomy, norms, RoPE, projections.
+
+PyTorch counterparts of ``repro.models.common``; layouts are the JAX
+package's (weights ``(d, H, hd)`` / ``(H, hd, d)`` / ``(d, d_ff)``), so the
+two packages' tensors compare leaf by leaf.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+# ---------------------------------------------------------------------------
+# cache-leaf taxonomy: what each entry of a serving cache tree *is*.  The
+# model creates these entries and the serve layer slices/concats/stores them.
+# ---------------------------------------------------------------------------
+
+#: entries whose trailing-from-batch axis is the document/sequence axis
+CACHE_SEQ_KEYS = ("k", "v", "c_kv", "k_rope")
+#: entries holding running state (SSD conv/ssm; kept only at segment end)
+CACHE_STATE_KEYS = ("conv", "ssm")
+#: entries constant across the document (cross-attention context K/V)
+CACHE_CONST_KEYS = ("ck", "cv")
+
+
+def cache_leaf_key(path) -> Optional[str]:
+    """Innermost dict key of a cache-tree leaf path ("k", "ssm", …).
+
+    ``path`` is the sequence of keys and list indices leading to the leaf;
+    list indices are ints and are skipped.
+    """
+    for p in reversed(path):
+        if isinstance(p, str):
+            return p
+    return None
+
+
+def tree_map_with_path(fn, tree, *rest, path=()):
+    """Map ``fn(path, leaf, *other_leaves)`` over nested dicts/lists/tuples.
+
+    The other trees must share ``tree``'s structure; ``path`` holds the
+    dict keys and list indices leading to each leaf.
+    """
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map_with_path(fn, v, *(r[i] for r in rest),
+                                  path=path + (i,))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(path, tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    out: list = []
+    tree_map_with_path(lambda _, x: out.append(x), tree)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    """Normalize in fp32, cast back to x's dtype, *then* scale (the JAX
+    order: the product rounds in the working dtype)."""
+    dt = x.dtype
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def rope_angles(positions, head_dim: int, theta: float):
+    """(…pos…) → cos/sin of shape (…pos…, head_dim/2), fp32."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """Half-split rotation.  x (..., S, H, D); cos/sin (..., S, D/2)."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def dense(x, w):
+    """(…, d) @ (d, e) → (…, e)."""
+    return torch.matmul(x, w)
+
+
+def proj_heads(x, w):
+    """(…, d) @ (d, H, k) → (…, H, k) — per-head input projection."""
+    d, h, k = w.shape
+    return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def proj_out(x, w):
+    """(…, H, k) @ (H, k, d) → (…, d) — attention output projection."""
+    h, k, d = w.shape
+    return torch.matmul(x.flatten(-2), w.reshape(h * k, d))

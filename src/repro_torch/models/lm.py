@@ -1,0 +1,371 @@
+"""Language-model assembly for attention-only dense decoder stacks.
+
+A config compiles into **segments** ``(period, n_periods)`` exactly as in
+``repro.models.lm``; parameters and serving caches keep the JAX package's
+layer-stacked layout (parameter leaves ``(L, ...)``, cache leaves
+``(L, B, T, KV, hd)`` with the sequence at axis 2), so the two packages
+compare leaf by leaf.  Where JAX scans over stacked layers the port loops
+over them in Python, indexing views of the stacked tensors.
+
+Serving entry points update caches **in place**: ``prefill_extend`` and
+``decode_step`` write the new K/V rows into the cache tensors they are
+given and return the same tree (JAX returns new arrays).
+
+Only dense attention layers with a dense SwiGLU MLP are ported; MLA, SSD,
+MoE and cross-attention layers wait for ROADMAP.md §1 item 8.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+from . import attention as attn
+from . import moe as moe_mod
+from .common import (CACHE_STATE_KEYS, cache_leaf_key, rms_norm,
+                     tree_map_with_path)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str           # attn | attn_bidir | mla | ssd
+    mlp: str             # dense | moe | none
+    cross: bool = False  # add a cross-attention sublayer
+
+
+def build_segments(cfg: ArchConfig) -> list[tuple[tuple[LayerSpec, ...], int]]:
+    L = cfg.n_layers
+    mixer = "mla" if cfg.mla is not None else "attn"
+
+    def mlp_kind(idx: int) -> str:
+        if cfg.d_ff == 0 and cfg.moe is None:
+            return "none"
+        if cfg.moe is None:
+            return "dense"
+        m = cfg.moe
+        if idx < m.first_dense_layers:
+            return "dense"
+        if m.every > 1 and idx % m.every != m.every - 1:
+            return "dense"
+        return "moe"
+
+    if cfg.family == "ssm":
+        return [((LayerSpec("ssd", "none"),), L)]
+    if cfg.family == "hybrid":
+        P = cfg.hybrid_period
+        period = tuple(
+            LayerSpec("attn" if i == cfg.hybrid_attn_idx else "ssd", mlp_kind(i))
+            for i in range(P)
+        )
+        assert L % P == 0
+        return [(period, L // P)]
+    if cfg.family == "vlm":
+        E = cfg.cross_attn_every
+        period = tuple(
+            LayerSpec("attn", "dense", cross=(i == E - 1)) for i in range(E)
+        )
+        assert L % E == 0
+        return [(period, L // E)]
+    if cfg.family == "encdec":
+        return [((LayerSpec("attn", "dense", cross=True),), L)]
+    # dense / moe decoders, with optional leading dense layers
+    segs: list[tuple[tuple[LayerSpec, ...], int]] = []
+    kinds = [mlp_kind(i) for i in range(L)]
+    i = 0
+    while i < L:
+        j = i
+        while j < L and kinds[j] == kinds[i]:
+            j += 1
+        segs.append(((LayerSpec(mixer, kinds[i]),), j - i))
+        i = j
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    init: str = "normal"              # normal | zeros | ones | small_normal
+    scale: float = 1.0
+
+
+def _attn_specs(cfg: ArchConfig) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = {
+        "wq": ParamSpec((d, H, hd)),
+        "wk": ParamSpec((d, KV, hd)),
+        "wv": ParamSpec((d, KV, hd)),
+        "wo": ParamSpec((H, hd, d), scale=cfg.n_layers ** -0.5),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), "ones")
+        s["k_norm"] = ParamSpec((hd,), "ones")
+    return s
+
+
+def _dense_mlp_specs(cfg: ArchConfig, d_ff: int) -> dict:
+    d = cfg.d_model
+    s = {
+        "w_up": ParamSpec((d, d_ff)),
+        "w_down": ParamSpec((d_ff, d), scale=cfg.n_layers ** -0.5),
+    }
+    if cfg.activation == "swiglu":
+        s["w_gate"] = ParamSpec((d, d_ff))
+    return s
+
+
+def _layer_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
+    d = cfg.d_model
+    out: dict = {"ln1": ParamSpec((d,), "ones"), "mixer": _attn_specs(cfg)}
+    if spec.mlp != "none":
+        out["ln2"] = ParamSpec((d,), "ones")
+        out["mlp"] = _dense_mlp_specs(cfg, cfg.d_ff)
+    return out
+
+
+def _stack_specs(tree, n: int):
+    return tree_map_with_path(
+        lambda _, s: ParamSpec((n,) + s.shape, s.init, s.scale), tree)
+
+
+def _unsupported(cfg: ArchConfig) -> list[str]:
+    why = []
+    if cfg.mla is not None:
+        why.append("MLA attention")
+    if cfg.ssm is not None:
+        why.append("SSD layers")
+    if cfg.moe is not None:
+        why.append("MoE layers")
+    if cfg.encoder_layers or cfg.cross_attn_every or cfg.vision_context:
+        why.append("cross-attention")
+    if cfg.d_ff and cfg.activation != "swiglu":
+        why.append(f"{cfg.activation} MLPs")
+    if cfg.expand_kv:
+        why.append("expand_kv")
+    return why
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """Spec tree of an attention-only dense stack (JAX key names)."""
+    why = _unsupported(cfg)
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(why)} not ported yet (ROADMAP.md §1 item 8)")
+    d = cfg.d_model
+    specs: dict = {
+        "embed": ParamSpec((cfg.vocab_size, d)),
+        "final_norm": ParamSpec((d,), "ones"),
+        "segments": [
+            _stack_specs({f"p{j}": _layer_specs(cfg, ls)
+                          for j, ls in enumerate(period)}, n)
+            for period, n in build_segments(cfg)
+        ],
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, cfg.vocab_size))
+    return specs
+
+
+def params_from_jax(cfg: ArchConfig, tree, device="cuda") -> dict:
+    """The JAX package's parameter tree as the port's parameters.
+
+    ``tree`` is nested dicts and lists of numpy arrays with JAX's key names
+    (e.g. ``jax.tree.map(np.asarray, repro.models.lm.LM(cfg).init(key))``).
+    Every leaf is checked against :func:`param_specs` and placed on
+    ``device`` in the config's ``param_dtype``.
+    """
+    dtype = DTYPES[cfg.param_dtype]
+
+    def conv(path, spec, x):
+        x = np.array(x, np.float32)           # a writable host copy
+        if tuple(x.shape) != spec.shape:
+            raise ValueError(f"param {'/'.join(map(str, path))}: shape "
+                             f"{tuple(x.shape)}, expected {spec.shape}")
+        return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+    return tree_map_with_path(conv, param_specs(cfg), tree)
+
+
+def _layer_params(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s parameters as views into the stacked leaves."""
+    return tree_map_with_path(lambda _, x: x[i], stacked)
+
+
+def _attn_params(p: dict) -> attn.AttnParams:
+    return attn.AttnParams(p["wq"], p["wk"], p["wv"], p["wo"],
+                           p.get("q_norm"), p.get("k_norm"))
+
+
+class LM:
+    """Decoder LM for one attention-only dense ArchConfig.
+
+    ``device`` is where :meth:`init` allocates by default; every forward
+    entry point runs on the device of the tokens it is given.
+    """
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        self.cfg = cfg
+        self.specs = param_specs(cfg)          # raises for unported layers
+        self.segments = build_segments(cfg)
+        self.device = torch.device(device)
+        self.compute_dtype = DTYPES[cfg.compute_dtype]
+        self.param_dtype = DTYPES[cfg.param_dtype]
+
+    # -- params ----------------------------------------------------------
+    def init(self, generator: torch.Generator, device=None) -> dict:
+        """Random parameters drawn on ``device`` in ``param_dtype`` directly
+        (a full-width init never passes through host memory or fp32).
+        ``generator`` must live on the same device."""
+        device = self.device if device is None else torch.device(device)
+        dtype = self.param_dtype
+
+        def make(_, s: ParamSpec):
+            if s.init == "zeros":
+                return torch.zeros(s.shape, dtype=dtype, device=device)
+            if s.init == "ones":
+                return torch.ones(s.shape, dtype=dtype, device=device)
+            std = 0.02 * s.scale if s.init == "normal" else 0.006 * s.scale
+            return torch.empty(s.shape, dtype=dtype, device=device).normal_(
+                0.0, std, generator=generator)
+
+        return tree_map_with_path(make, self.specs)
+
+    # -- pieces ------------------------------------------------------------
+    def _embed(self, params, tokens):
+        return F.embedding(tokens.long(), params["embed"]).to(self.compute_dtype)
+
+    def _mlp(self, spec: LayerSpec, p, x):
+        if spec.mlp == "none":
+            return x
+        hn = rms_norm(x.to(self.compute_dtype), p["ln2"], self.cfg.norm_eps)
+        y = moe_mod.dense_ffn(p["mlp"], hn, self.cfg.activation)
+        return x + y.to(x.dtype)
+
+    def _layers(self, params, caches=None):
+        """Yield (segment index, period slot j, layer i, spec, layer params,
+        layer cache views or None) in execution order."""
+        for s, ((period, n), seg_params) in enumerate(
+                zip(self.segments, params["segments"])):
+            for i in range(n):
+                for j, spec in enumerate(period):
+                    cache = None
+                    if caches is not None:
+                        c = caches[s][f"p{j}"]
+                        cache = (c["k"][i], c["v"][i])
+                    yield s, j, i, spec, _layer_params(seg_params[f"p{j}"], i), cache
+
+    def logits(self, params, hidden):
+        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return torch.matmul(hidden.to(self.compute_dtype),
+                            head.to(self.compute_dtype))
+
+    def _final_logits(self, params, x):
+        hidden = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self.logits(params, hidden[:, -1:, :])[:, 0]
+
+    # -- serving ------------------------------------------------------------
+    def prefill(self, params, batch):
+        """Returns (last-position logits (B,V), cache tree)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        kv: dict = {}
+        for seg, j, _, spec, p, _ in self._layers(params):
+            h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
+            mixed, (k, v) = attn.self_attention(
+                _attn_params(p["mixer"]), h, positions, causal=True,
+                theta=cfg.rope_theta, block=cfg.attn_block)
+            x = self._mlp(spec, p, x + mixed.to(x.dtype))
+            kv.setdefault((seg, j), []).append((k, v))
+        caches = [
+            {f"p{j}": {"k": torch.stack([k for k, _ in kv[(seg, j)]]),
+                       "v": torch.stack([v for _, v in kv[(seg, j)]])}
+             for j in range(len(period))}
+            for seg, (period, _) in enumerate(self.segments)]
+        return self._final_logits(params, x), caches
+
+    def prefill_extend(self, params, caches, tokens, start):
+        """Extend a capacity-padded cache with a block of tokens, in place.
+
+        Given caches whose sequence axis is padded to some capacity ``cap``
+        and holds valid state for [0, start), process ``tokens`` (B, nb) at
+        positions [start, start+nb) — writing their KV into the caches —
+        and return (last-position logits, the same caches, now valid to
+        start+nb).  ``start`` is an int or a 0-d integer tensor; it stays
+        on the device.  ``cap`` must be ≥ start+nb (the caller buckets it).
+        """
+        cfg = self.cfg
+        b, nb = tokens.shape
+        start = torch.as_tensor(start, dtype=torch.int32, device=tokens.device)
+        x = self._embed(params, tokens)
+        positions = (start + torch.arange(nb, device=tokens.device)).expand(b, nb)
+        for _, _, _, spec, p, (ck, cv) in self._layers(params, caches):
+            h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
+            mixed, _ = attn.extend_attention_cached(
+                _attn_params(p["mixer"]), h, ck, cv, positions, start,
+                theta=cfg.rope_theta)
+            x = self._mlp(spec, p, x + mixed.to(x.dtype))
+        return self._final_logits(params, x), caches
+
+    def prefill_extend_many(self, params, caches, tokens, start, n_chunks: int):
+        """Multi-chunk extend: one call fills a whole plan gap.
+
+        tokens (B, n_slots, chunk) is a fixed-slot chunk buffer; slots
+        i < ``n_chunks`` hold real document chunks starting at
+        ``start + i·chunk`` and later slots are never touched.
+
+        Returns (logits of the last processed chunk's final position,
+        caches, chunk_states) where ``chunk_states`` mirrors the cache tree
+        with each running-state leaf ("conv"/"ssm") stacked to (n_slots, …)
+        — the state at the end of each chunk, which per-chunk segment
+        materialization needs — and empty tensors elsewhere.
+        """
+        b, n_slots, chunk = tokens.shape
+
+        def snap_init(path, x):
+            if cache_leaf_key(path) in CACHE_STATE_KEYS:
+                return x.new_zeros((n_slots,) + tuple(x.shape))
+            return x.new_zeros((0,))
+
+        def snap_write(i, snap, caches):
+            def f(path, s, x):
+                if cache_leaf_key(path) in CACHE_STATE_KEYS:
+                    s[i] = x
+                return s
+            tree_map_with_path(f, snap, caches)
+
+        snap = tree_map_with_path(snap_init, caches)
+        logits = torch.zeros((b, self.cfg.vocab_size), dtype=self.compute_dtype,
+                             device=tokens.device)
+        start = torch.as_tensor(start, dtype=torch.int32, device=tokens.device)
+        for i in range(n_chunks):
+            logits, caches = self.prefill_extend(params, caches, tokens[:, i],
+                                                 start + i * chunk)
+            snap_write(i, snap, caches)
+        return logits, caches, snap
+
+    def decode_step(self, params, caches, tokens, pos):
+        """One token for every sequence, in place.  tokens (B,1); pos (B,)
+        int32 on the tokens' device.  Attention runs the ragged
+        flash-decode kernel, whose output is bit-invariant to the cache's
+        padded capacity."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        for _, _, _, spec, p, (ck, cv) in self._layers(params, caches):
+            h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
+            mixed, _ = attn.decode_attention(
+                _attn_params(p["mixer"]), h, ck, cv, pos, theta=cfg.rope_theta)
+            x = self._mlp(spec, p, x + mixed.to(x.dtype))
+        hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return self.logits(params, hidden)[:, 0], caches

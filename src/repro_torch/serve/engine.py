@@ -1,0 +1,411 @@
+"""Serving engine: single-document decode with descriptor-planned prefix reuse.
+
+A request for ``[0, L)`` of a document — a KV cache covering its first L
+tokens — is planned with the paper's machinery: Dijkstra over segment
+descriptors (directed/monoid case), stored segments vs. prefill priced by
+a monotone cost model.  Gaps are prefilled in fixed-size chunks and each
+chunk is materialized for future requests (paper Alg 2 with KV segments
+in place of chunk models).
+
+:class:`ServeEngine` is one session over one document; it drives a
+:class:`PrefixCacheBuilder`, which owns the model entry points.  The
+batched multi-session front end (``SessionManager``) and the deferred
+(async) build path wait for ROADMAP.md §1 item 4.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.cost import CostModel, serve_cost_model
+from repro_torch.core.descriptors import Range
+from repro_torch.core.optimizer import Plan, baseline_plan, shortest_plan
+from repro_torch.kernels.common import bucket_len
+
+from .kv_cache import (DEFAULT_DOC, SegmentStore, cache_len, chunk_segment,
+                       clone_cache, insert_cache, pad_cache_to, slice_cache)
+
+
+@dataclass
+class ServeStats:
+    requests: int = 0
+    tokens_reused: int = 0
+    tokens_computed: int = 0
+    tokens_decoded: int = 0
+    planner_s: float = 0.0
+    prefill_s: float = 0.0
+    decode_s: float = 0.0
+
+    # every derived rate degrades to 0.0 (never NaN/inf) on zero traffic
+    @property
+    def reuse_frac(self) -> float:
+        tot = self.tokens_reused + self.tokens_computed
+        return self.tokens_reused / tot if tot else 0.0
+
+    @property
+    def prefill_tok_s(self) -> float:
+        done = self.tokens_reused + self.tokens_computed
+        return done / self.prefill_s if self.prefill_s > 0 else 0.0
+
+    @property
+    def decode_tok_s(self) -> float:
+        return (self.tokens_decoded / self.decode_s
+                if self.decode_s > 0 else 0.0)
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device, so host clocks around it time the work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class PrefixCacheBuilder:
+    """Plans and assembles KV prefix caches against a SegmentStore.
+
+    Bucketed-cache invariants every entry point preserves:
+
+      * caches returned by :meth:`build_prefix` / :meth:`prefix_with_logits`
+        ride at capacity ``bucket_len(max(length, capacity), seq_bucket)``
+        along the sequence axis;
+      * ``start`` is a device tensor on the extend paths, so the kernels'
+        launch configuration depends only on (cache bucket, chunk shape);
+      * ``lowerings`` counts the distinct (cache capacity, chunk shape)
+        pairs dispatched per entry point — the port's counterpart of the
+        JAX package's per-shape executables, held to the same O(#buckets)
+        bound.
+    """
+
+    def __init__(self, model, params, store: SegmentStore, *,
+                 chunk_tokens: int = 64,
+                 seq_bucket: int = 64,
+                 cost_model: Optional[CostModel] = None,
+                 device=None) -> None:
+        self.model = model
+        self.params = params
+        self.store = store
+        self.chunk = chunk_tokens
+        self.seq_bucket = seq_bucket
+        self.device = torch.device(model.device if device is None else device)
+        self.cost = cost_model if cost_model is not None else serve_cost_model()
+        self.lowerings = {"prefill": 0, "extend": 0, "extend_many": 0,
+                          "insert": 0}
+        self._shapes: dict[str, set] = {k: set() for k in self.lowerings}
+
+    def _dispatch(self, key: str, shape: tuple) -> None:
+        if shape not in self._shapes[key]:
+            self._shapes[key].add(shape)
+            self.lowerings[key] += 1
+
+    @property
+    def extend_lowerings(self) -> int:
+        """Total distinct prefill/extend/insert shapes dispatched so far."""
+        return sum(self.lowerings.values())
+
+    def _tokens(self, toks) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
+
+    def _scalar(self, x: int) -> torch.Tensor:
+        return torch.tensor(x, dtype=torch.int32, device=self.device)
+
+    # ------------------------------------------------------------------
+    def plan_prefix(self, length: int, *, doc_id: str = DEFAULT_DOC,
+                    stats: Optional[ServeStats] = None) -> Plan:
+        t0 = time.perf_counter()
+        plan = shortest_plan(
+            self.store.index(doc_id), Range(0, length), self.cost,
+            self.store.segment_bytes(doc_id), directed=True,
+        )
+        if stats is not None:
+            stats.planner_s += time.perf_counter() - t0
+        return plan
+
+    def build_prefix(self, doc: np.ndarray, length: int, *,
+                     doc_id: str = DEFAULT_DOC,
+                     stats: Optional[ServeStats] = None,
+                     materialize: bool = True,
+                     requester: Optional[int] = None,
+                     capacity: Optional[int] = None):
+        """Assemble the KV cache for document[:length] via the cheapest plan.
+
+        Returns (caches, plan) with the caches' sequence axis padded to
+        ``bucket_len(max(length, capacity), seq_bucket)``.  Gaps are filled
+        through ``prefill_extend`` / ``prefill_extend_many`` at this
+        capacity; each chunk is materialized for future requests.
+        Segments the plan references are pinned for the duration so chunk
+        puts can never evict them mid-execution.
+        """
+        stats = stats if stats is not None else ServeStats()
+        plan = self.plan_prefix(length, doc_id=doc_id, stats=stats)
+        steps = sorted(plan.steps, key=lambda s: s.rng.lo)  # DAG path is ordered
+        cap = bucket_len(max(length, capacity or 0), self.seq_bucket)
+        # bucket-padded segments are inserted whole, so the cache needs
+        # headroom for every reuse step's *capacity*, not just its valid end
+        for st in steps:
+            if st.model_id is not None:
+                end = st.rng.lo + self.store.capacity(st.model_id)
+                cap = max(cap, bucket_len(end, self.seq_bucket))
+        sink = None
+        if materialize:
+            sink = lambda rng, seg: self.store.put(  # noqa: E731
+                rng, seg, doc_id=doc_id, created_by=requester)
+        caches = None
+        t0 = time.perf_counter()
+        with self.store.pinned(plan.models_used):
+            self.store.prefetch_ids(plan.models_used)
+            for st in steps:
+                if st.model_id is not None:
+                    seg = self.store.get(st.model_id, requester=requester)
+                    if caches is None:
+                        # plan anchor at 0: adopt a copy of the segment,
+                        # grown to the request capacity (later steps write
+                        # into it in place; the stored copy stays intact)
+                        caches = pad_cache_to(seg.caches, cap)
+                        if caches is seg.caches:
+                            caches = clone_cache(caches)
+                    else:
+                        self._dispatch("insert", (cache_len(caches), seg.capacity))
+                        caches = insert_cache(caches, seg.caches, st.rng.lo)
+                    stats.tokens_reused += st.rng.size
+                else:
+                    caches = self._fill_gap(doc, st.rng, caches, cap,
+                                            stats=stats, sink=sink)
+        if caches is not None:
+            caches = pad_cache_to(caches, cap)
+        _sync(self.device)
+        stats.prefill_s += time.perf_counter() - t0
+        return caches, plan
+
+    def _fill_gap(self, doc, rng: Range, caches, cap: int, *, stats, sink):
+        """Prefill one uncovered plan step [rng.lo, rng.hi) into ``caches``.
+
+        Full chunks run as one ``prefill_extend_many`` call; at most one
+        ragged remainder runs as one ``prefill_extend``.  Only a cold start
+        at position 0 uses ``prefill``.  ``sink`` receives each chunk's
+        materialized segment (None = don't materialize).
+        """
+        lo, hi = rng.lo, rng.hi
+        if caches is None and lo == 0:
+            first = min(self.chunk, hi)
+            self._dispatch("prefill", (first,))
+            _, caches = self.model.prefill(
+                self.params, {"tokens": self._tokens(doc[None, :first])})
+            if sink is not None:
+                sink(Range(0, first), slice_cache(caches, 0, first))
+            stats.tokens_computed += first
+            lo = first
+            if lo >= hi:
+                return caches
+        caches = pad_cache_to(caches, cap)
+        # writes past the capacity would corrupt the cache: check on host
+        cur = cache_len(caches)
+        assert cur == 0 or cur >= hi, f"cache capacity {cur} < gap end {hi}"
+        n_full = (hi - lo) // self.chunk
+        if n_full:
+            n_slots = cap // self.chunk
+            toks = np.zeros((1, n_slots, self.chunk), np.int64)
+            toks[0, :n_full] = np.asarray(
+                doc[lo:lo + n_full * self.chunk]).reshape(n_full, self.chunk)
+            self._dispatch("extend_many", (cache_len(caches), n_slots, self.chunk))
+            _, caches, states = self.model.prefill_extend_many(
+                self.params, caches, self._tokens(toks), self._scalar(lo),
+                n_full)
+            if sink is not None:
+                for i in range(n_full):
+                    a = lo + i * self.chunk
+                    sink(Range(a, a + self.chunk),
+                         chunk_segment(caches, states, i, a, a + self.chunk))
+            stats.tokens_computed += n_full * self.chunk
+            lo += n_full * self.chunk
+        if lo < hi:                              # ragged remainder chunk
+            self._dispatch("extend", (cache_len(caches), hi - lo))
+            _, caches = self.model.prefill_extend(
+                self.params, caches, self._tokens(doc[None, lo:hi]),
+                self._scalar(lo))
+            if sink is not None:
+                sink(Range(lo, hi), slice_cache(caches, lo, hi))
+            stats.tokens_computed += hi - lo
+        return caches
+
+    def prefix_with_logits(self, doc: np.ndarray, prefix_len: int, *,
+                           doc_id: str = DEFAULT_DOC,
+                           stats: Optional[ServeStats] = None,
+                           requester: Optional[int] = None,
+                           capacity: Optional[int] = None):
+        """Cache for [0, prefix_len) plus the logits of its last position.
+
+        The last prefix token runs through a 1-token extend so its logits
+        (the first sampling distribution) come out of the pass that
+        completes the cache.  Pass ``capacity`` (e.g. prefix_len + n_new)
+        so the caches are already padded to the decode bucket.
+        """
+        stats = stats if stats is not None else ServeStats()
+        if prefix_len < 2:
+            t0 = time.perf_counter()
+            self._dispatch("prefill", (prefix_len,))
+            logits, caches = self.model.prefill(
+                self.params, {"tokens": self._tokens(doc[None, :prefix_len])})
+            _sync(self.device)
+            stats.prefill_s += time.perf_counter() - t0
+            stats.tokens_computed += prefix_len
+            return logits, caches, baseline_plan(Range(0, prefix_len), self.cost)
+        caches, plan = self.build_prefix(
+            doc, prefix_len - 1, doc_id=doc_id, stats=stats,
+            materialize=True, requester=requester,
+            capacity=max(prefix_len, capacity or 0))
+        cur = cache_len(caches)
+        assert cur == 0 or cur >= prefix_len, (
+            f"cache capacity {cur} < prefix {prefix_len}")
+        t0 = time.perf_counter()
+        self._dispatch("extend", (cur, 1))
+        logits, caches = self.model.prefill_extend(
+            self.params, caches, self._tokens(doc[None, prefix_len - 1:prefix_len]),
+            self._scalar(prefix_len - 1))
+        _sync(self.device)
+        stats.prefill_s += time.perf_counter() - t0
+        stats.tokens_computed += 1
+        return logits, caches, plan
+
+    def prefill_raw(self, batch):
+        """From-scratch prefill (no planning, no materialization)."""
+        self._dispatch("prefill", tuple(batch["tokens"].shape[1:]))
+        return self.model.prefill(self.params, batch)
+
+
+class ServeEngine:
+    """Single-session serving over one document.
+
+    ``store``/``doc_id`` default to a private store; pass a shared
+    :class:`SegmentStore` and a stable ``doc_id`` to share segments.
+    ``device`` (default: the model's) is where tokens and caches live.
+    """
+
+    def __init__(
+        self,
+        model,
+        params,
+        doc_tokens: np.ndarray,
+        *,
+        chunk_tokens: int = 64,
+        seq_bucket: int = 64,
+        cost_model: Optional[CostModel] = None,
+        byte_budget: Optional[int] = None,
+        store: Optional[SegmentStore] = None,
+        doc_id: str = DEFAULT_DOC,
+        eviction_policy: Optional[str] = None,
+        device=None,
+    ) -> None:
+        self.model = model
+        self.params = params
+        self.doc = np.asarray(doc_tokens, np.int32)
+        self.doc_id = doc_id
+        if store is not None and byte_budget is not None:
+            raise ValueError(
+                "pass byte_budget only when the engine owns its store; a "
+                "shared store's budget is set where the store is created")
+        if store is not None and eviction_policy is not None:
+            raise ValueError(
+                "pass eviction_policy only when the engine owns its store; "
+                "a shared store's policy is set where the store is created")
+        cost_model = cost_model if cost_model is not None else serve_cost_model()
+        if store is None:
+            store = SegmentStore(byte_budget=byte_budget,
+                                 cost_model=cost_model,
+                                 policy=eviction_policy,
+                                 seq_bucket=seq_bucket)
+        self.store = store
+        self.builder = PrefixCacheBuilder(model, params, self.store,
+                                          chunk_tokens=chunk_tokens,
+                                          seq_bucket=seq_bucket,
+                                          cost_model=cost_model,
+                                          device=device)
+        self.device = self.builder.device
+        self.cost = self.builder.cost
+        self.stats = ServeStats()
+
+    @property
+    def chunk(self) -> int:
+        return self.builder.chunk
+
+    # ------------------------------------------------------------------
+    def plan_prefix(self, length: int) -> Plan:
+        return self.builder.plan_prefix(length, doc_id=self.doc_id,
+                                        stats=self.stats)
+
+    def build_prefix(self, length: int, *, materialize: bool = True):
+        return self.builder.build_prefix(
+            self.doc, length, doc_id=self.doc_id, stats=self.stats,
+            materialize=materialize)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def generate(self, prefix_len: int, n_new: int, *, greedy: bool = True,
+                 seed: int = 0):
+        """Serve one request: cache for [0, prefix_len), then decode n_new.
+
+        Sampling (``greedy=False``) draws from a ``torch.Generator`` seeded
+        with ``seed`` on the engine's device.
+        """
+        self.stats.requests += 1
+        logits, caches, plan = self.builder.prefix_with_logits(
+            self.doc, prefix_len, doc_id=self.doc_id, stats=self.stats,
+            capacity=prefix_len + n_new)
+        # a no-op except on the short-prefix prefill path
+        caches = pad_cache_to(
+            caches, bucket_len(prefix_len + n_new, self.builder.seq_bucket))
+        t0 = time.perf_counter()
+        out_tokens = []
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        pos = torch.tensor([prefix_len], dtype=torch.int32, device=self.device)
+        for i in range(n_new):
+            if greedy:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                probs = torch.softmax(logits.float(), dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            out_tokens.append(int(nxt[0]))
+            if i < n_new - 1:  # the last token's logits are never consumed
+                logits, caches = self.model.decode_step(
+                    self.params, caches, nxt[:, None], pos)
+                pos = pos + 1
+        self.stats.decode_s += time.perf_counter() - t0
+        self.stats.tokens_decoded += len(out_tokens)
+        return out_tokens, plan
+
+    # ------------------------------------------------------------------
+    def update_document(self, new_tokens: np.ndarray):
+        """Swap in edited document content, keeping the reusable KV prefix.
+
+        Diffs old vs new tokens, rekeys every stored segment strictly
+        before the divergence point to the edited content's key when the
+        cost model prices the edit-rebuild below from-scratch, and
+        releases the rest.  Returns the :class:`~repro_torch.core.planner.EditPlan`.
+        """
+        from repro_torch.core.planner import plan_edit
+
+        from .session import doc_key
+
+        new_doc = np.asarray(new_tokens, np.int32)
+        old_id = self.doc_id
+        new_id = doc_key(new_doc)
+        eplan = plan_edit(self.doc, new_doc, self.store.index(old_id),
+                          self.cost, self.store.segment_bytes(old_id))
+        if new_id != old_id:
+            if eplan.action == "edit":
+                self.store.rekey(old_id, new_id, upto=eplan.divergence)
+            self.store.release_doc(old_id)
+        self.doc, self.doc_id = new_doc, new_id
+        return eplan
+
+    @torch.no_grad()
+    def baseline_build(self, length: int):
+        """No-reuse reference: prefill everything from scratch.  Returns
+        (caches, seconds)."""
+        batch = {"tokens": self.builder._tokens(self.doc[None, :length])}
+        t0 = time.perf_counter()
+        _, caches = self.builder.prefill_raw(batch)
+        _sync(self.device)
+        return caches, time.perf_counter() - t0

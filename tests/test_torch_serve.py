@@ -1,0 +1,171 @@
+"""The slice end to end: the port's ``ServeEngine`` against ``repro``'s.
+
+Reduced ``deepseek-67b`` with the reference's weights (``params_from_jax``),
+one 256-token document from ``np.random.default_rng``, chunk 64, three
+greedy requests whose prefixes reuse one another.  Required: the same plans
+(step ranges, reuse or gap per step), the same segment ids in the store
+and identical greedy tokens.  Greedy only: ``jax.random`` and
+``torch.Generator`` draw different numbers.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced as jax_reduced  # noqa: E402
+from repro.models.lm import LM as JaxLM  # noqa: E402
+from repro.serve.engine import PrefixCacheBuilder as JaxBuilder  # noqa: E402
+from repro.serve.engine import ServeEngine as JaxEngine  # noqa: E402
+from repro.serve.kv_cache import SegmentStore as JaxStore  # noqa: E402
+from repro.serve.session import doc_key as jax_doc_key  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core.descriptors import Range  # noqa: E402
+from repro_torch.models.lm import LM, params_from_jax  # noqa: E402
+from repro_torch.serve.engine import PrefixCacheBuilder, ServeEngine  # noqa: E402
+from repro_torch.serve.kv_cache import SegmentStore, slice_cache  # noqa: E402
+from repro_torch.serve.session import doc_key  # noqa: E402
+
+REQUESTS = [(200, 4), (256, 4), (130, 4)]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jax_reduced(jax_get_config("deepseek-67b"))
+    cfg = reduced(get_config("deepseek-67b"))
+    jm = JaxLM(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    tm = LM(cfg, device="cpu")
+    params = params_from_jax(cfg, tree, "cpu")
+    rng = np.random.default_rng(0)
+    docs = [rng.integers(0, cfg.vocab_size, 256).astype(np.int32)
+            for _ in range(3)]
+    return jm, jparams, tm, params, docs
+
+
+def _plan_steps(plan):
+    return [(s.rng.lo, s.rng.hi, s.model_id is not None) for s in plan.steps]
+
+
+def test_serve_engine_matches_reference(setup):
+    jm, jparams, tm, params, docs = setup
+    doc = docs[0]
+    jeng = JaxEngine(jm, jparams, doc, chunk_tokens=64)
+    teng = ServeEngine(tm, params, doc, chunk_tokens=64, device="cpu")
+    for prefix, n_new in REQUESTS:
+        jt, jp = jeng.generate(prefix, n_new, greedy=True)
+        tt, tp = teng.generate(prefix, n_new, greedy=True)
+        assert _plan_steps(tp) == _plan_steps(jp)
+        assert tp.models_used == jp.models_used
+        assert tt == jt, (prefix, tt, jt)
+    assert sorted(teng.store._segs) == sorted(jeng.store._segs)
+    assert teng.stats.tokens_reused == jeng.stats.tokens_reused > 0
+    assert teng.stats.tokens_computed == jeng.stats.tokens_computed
+    assert teng.builder.lowerings == jeng.builder.lowerings
+
+
+def test_cold_serve_lowerings_bounded_by_buckets(setup):
+    """Cold-serving three documents through one builder dispatches one
+    shape set (the bound tests/test_prefill_recompile.py pins for the JAX
+    package): one multi-chunk extend shape, at most five shapes in all."""
+    jm, jparams, tm, params, docs = setup
+    tb = PrefixCacheBuilder(tm, params, SegmentStore(), chunk_tokens=32)
+    jb = JaxBuilder(jm, jparams, JaxStore(), chunk_tokens=32)
+    for i, doc in enumerate(docs):
+        tb.prefix_with_logits(doc, 256, doc_id=f"d{i}", capacity=258)
+        jb.prefix_with_logits(doc, 256, doc_id=f"d{i}", capacity=258)
+    assert tb.lowerings["extend_many"] == 1, tb.lowerings
+    assert tb.extend_lowerings <= 5, tb.lowerings
+    assert tb.lowerings == jb.lowerings
+
+
+def test_update_document_matches_reference(setup):
+    jm, jparams, tm, params, docs = setup
+    doc = docs[1]
+    jeng = JaxEngine(jm, jparams, doc, chunk_tokens=64, doc_id=jax_doc_key(doc))
+    teng = ServeEngine(tm, params, doc, chunk_tokens=64, doc_id=doc_key(doc),
+                       device="cpu")
+    assert teng.doc_id == jeng.doc_id
+    jeng.generate(256, 2)
+    teng.generate(256, 2)
+    new_doc = doc.copy()
+    new_doc[160] = (new_doc[160] + 1) % 512
+    jep = jeng.update_document(new_doc)
+    tep = teng.update_document(new_doc)
+    assert (tep.action, tep.divergence, tep.reused_tokens, sorted(tep.orphans)) == \
+        (jep.action, jep.divergence, jep.reused_tokens, sorted(jep.orphans))
+    assert tep.action == "edit" and teng.doc_id == jeng.doc_id
+    jt, jp = jeng.generate(256, 3)
+    tt, tp = teng.generate(256, 3)
+    assert _plan_steps(tp) == _plan_steps(jp) and tt == jt
+    assert sorted(teng.store._segs) == sorted(jeng.store._segs)
+
+
+def test_reuse_is_exact_and_store_keeps_copies(setup):
+    """A request replayed from stored segments gives the same tokens as its
+    cold build, and no stored segment changes while later requests extend
+    and decode in place (slices are copies, not views)."""
+    _, _, tm, params, docs = setup
+    eng = ServeEngine(tm, params, docs[2], chunk_tokens=64, device="cpu")
+    cold, _ = eng.generate(192, 5)
+    snap = {sid: [x.clone() for x in (s.caches[0]["p0"]["k"], s.caches[0]["p0"]["v"])]
+            for sid, s in eng.store._segs.items()}
+    warm, plan = eng.generate(192, 5)
+    assert warm == cold and all(s.model_id is not None for s in plan.steps[:-1])
+    eng.generate(256, 3)
+    for sid, (k, v) in snap.items():
+        seg = eng.store._segs[sid]
+        assert torch.equal(seg.caches[0]["p0"]["k"], k)
+        assert torch.equal(seg.caches[0]["p0"]["v"], v)
+
+
+def test_store_budget_and_pins(setup):
+    _, _, tm, params, docs = setup
+    with torch.no_grad():
+        _, caches = tm.prefill(params, {"tokens": torch.from_numpy(docs[0][None, :128])})
+    store = SegmentStore(seq_bucket=32)
+    ids = [store.put(Range(lo, lo + 32), slice_cache(caches, lo, lo + 32))
+           for lo in range(0, 128, 32)]
+    per_seg = store.nbytes() // 4
+    assert store.capacity(ids[0]) == 32 and per_seg > 0
+    store.byte_budget = 2 * per_seg
+    with store.pinned(ids[:3]):
+        store.put(Range(0, 16), slice_cache(caches, 0, 16))   # over budget
+        assert all(i in store for i in ids[:3])             # pins hold
+    assert store.nbytes() <= 2 * per_seg and store.evictions >= 3
+    n = len(store)
+    assert store.release_doc("doc") == n and len(store) == 0
+
+
+def test_cli_single_session_on_cpu(capsys):
+    from repro_torch.launch import serve as cli
+
+    cli.main(["--arch", "deepseek-67b", "--reduced", "--device", "cpu",
+              "--doc-len", "256", "--requests", "2", "--new-tokens", "3",
+              "--chunk-tokens", "64"])
+    out = capsys.readouterr().out
+    assert "req 0: prefix" in out and "req 1: prefix" in out
+    assert "2 requests: reuse" in out
+
+
+@pytest.mark.parametrize("flag", [["--sessions", "2"], ["--shards", "2"],
+                                  ["--store-dir", "x"], ["--edit-every", "1"],
+                                  ["--host-budget", "1"]])
+def test_cli_unported_flags_name_the_roadmap(flag):
+    from repro_torch.launch import serve as cli
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main(["--arch", "deepseek-67b", "--reduced", "--device", "cpu", *flag])
+
+
+def test_cli_without_a_card_needs_device_cpu():
+    from repro_torch.launch import serve as cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--arch", "deepseek-67b", "--reduced"])
+    assert "--device cpu" in str(exc.value.code)
