@@ -23,11 +23,27 @@ port's CUDA kernels from ``src/repro_torch/kernels/*/csrc`` and runs:
      tokens each) and a replay of the first, with the kernels' launch
      counters read around it;
   5. where the time goes: ``torch.profiler`` over full-width decode steps
-     and one 128-token extend — device busy and idle time, top kernels.
+     and one 128-token extend — device busy and idle time, top kernels;
+  6. the analytics engine on the card vs the same engine on the CPU (the
+     kernels' plain versions): 200K x 10 rows made from a seed, one query
+     script per family, identical plans and reuse, statistics within an
+     fp32 tolerance;
+  7. the analytics main path: the paper's workload (5M x 10 base tables
+     resident on the card, 50K-row models warmed to 0.6 coverage, 100
+     queries of N(50K, 12.5K) rows per family — the paper runs 1000)
+     through ``IncrementalAnalyticsEngine``, against ``baseline``, with the
+     statistics kernels' launch counters read around it.
+
+Phase 2 also checks the three analytics kernels (linreg statistics,
+Naive Bayes grouped statistics, chunked logistic SGD) against their plain
+versions at ``repro``'s sweep shapes with ``tests/test_kernels.py``'s
+tolerances, shows that two launches on the same data agree bitwise, and
+times them at the analytics path's shapes.
 
 Any failure exits non-zero.  The last two lines are the ``nvidia-smi``
 line and ``{"ok": true, "device": {...}}``; the line before them lists
-every kernel with its launches and times.
+every kernel with its launches (on its own main path: serving for the
+attention kernels, analytics for the statistics kernels) and times.
 """
 from __future__ import annotations
 
@@ -235,6 +251,223 @@ def decode_phase(dev, timer) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, analytics kernels
+# ---------------------------------------------------------------------------
+
+#: 5M-row fp32 sums against float64: a sequential fp32 sum of n terms
+#: strays by about sqrt(n) * 6e-8 of its scale (1.3e-4 at n = 5M); the
+#: kernels' split sums stray less
+SUM_NORMWISE = 1e-4
+
+
+def normwise(got, want) -> float:
+    """max |got - want| over max |want|: the error relative to the field's
+    scale, for sums whose entries cancel."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def library_time(timer, fn, label):
+    try:
+        return timer.ms(fn)
+    except (TypeError, RuntimeError) as exc:   # yardstick only
+        print(f"  {label} library yardstick unavailable: {exc}")
+        return None
+
+
+def linreg_stats_phase(dev, timer) -> dict:
+    from repro_torch.kernels.linreg_stats.ops import linreg_stats
+    from repro_torch.kernels.linreg_stats.ref import linreg_stats_ref
+
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol = 5e-3 if dtype == torch.bfloat16 else 5e-4
+        for n in (64, 513, 2048):
+            for d in (3, 10, 127, 130):
+                X = randn((n, d), dtype, dev, 40)
+                y = randn((n,), dtype, dev, 41)
+                got = linreg_stats(X, y, with_yty=True)
+                want = linreg_stats_ref(X, y)
+                torch.cuda.synchronize()
+                for name, g, w in zip(("A", "B", "yty"), got, want):
+                    ok, e = within(g, w, rtol, n * 2e-2 * rtol)
+                    check(ok, f"linreg_stats disagrees with its plain version "
+                              f"({dtype}, n {n}, d {d}, {name}, max err {e})")
+                    err[dtype] = max(err.get(dtype, 0.0), e)
+        print(f"  linreg_stats {str(dtype)[6:]:8s} n 64/513/2048 x d 3/10/127/130: "
+              f"max |err| {err[dtype]:.3g} (rtol {rtol}, atol n*2e-2*rtol)")
+
+    n, d = 5_000_000, 10
+    X = randn((n, d), torch.float32, dev, 42)
+    y = randn((n,), torch.float32, dev, 43)
+    first = linreg_stats(X, y, with_yty=True)
+    again = linreg_stats(X, y, with_yty=True)
+    plain = linreg_stats_ref(X, y)
+    Xd, yd = X.double(), y.double()
+    exact = (Xd.T @ Xd, Xd.T @ yd, yd @ yd)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    nerr = max(normwise(g, w) for g, w in zip(first, exact))
+    print(f"  linreg_stats 5M x 10: two launches bitwise equal: {same}; normwise err "
+          f"vs float64 {nerr:.3g} (limit {SUM_NORMWISE}), plain fp32 version vs float64 "
+          f"{max(normwise(g, w) for g, w in zip(plain, exact)):.3g}")
+    check(same, "linreg_stats is not bitwise repeatable")
+    check(nerr <= SUM_NORMWISE, "linreg_stats strays from the float64 statistics at 5M x 10")
+    del Xd, yd
+
+    rows = {}
+    for m in (n, 50_000):
+        Xm, ym = X[:m], y[:m]
+        Z = torch.cat([Xm, ym[:, None]], 1)
+        rows[m] = (timer.ms(lambda: linreg_stats(Xm, ym)),
+                   timer.ms(lambda: linreg_stats_ref(Xm, ym)),
+                   library_time(timer, lambda: torch.matmul(Z.T, Z), "linreg_stats"),
+                   *bound(2.0 * m * (d + 1) ** 2, 4.0 * (m * (d + 1) + (d + 1) ** 2),
+                          torch.float32))
+        print(f"  linreg_stats {m} x {d} fp32: kernel {rows[m][0]:.4f} ms, bound "
+              f"{rows[m][3]:.4f} ms ({rows[m][4]}), plain {rows[m][1]:.4f} ms, "
+              f"library matmul(Z.T, Z) {rows[m][2]} ms")
+    ms, plain_ms, library_ms, bound_ms, bound_by = rows[n]
+    return {"name": "linreg_stats", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err[torch.float32], "shape": f"n {n} d {d} fp32"}
+
+
+def nb_stats_phase(dev, timer) -> dict:
+    from repro_torch.kernels.nb_stats.ops import nb_stats
+    from repro_torch.kernels.nb_stats.ref import nb_stats_ref
+
+    def labels(n, c, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        y = torch.randint(0, c, (n,), generator=g, device=dev, dtype=torch.int32)
+        y[::17] = -1                       # unlabelled rows count nowhere
+        return y
+
+    err = 0.0
+    for c in (2, 13):
+        for d in (10, 129):
+            for n in (1024, 70_000):
+                X = randn((n, d), torch.float32, dev, 44)
+                y = labels(n, c, 45)
+                got = nb_stats(X, y, c)
+                want = nb_stats_ref(X, y, c)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], want[0]),
+                      f"nb_stats counts differ (C {c}, d {d}, n {n})")
+                scale = max(1.0, n / 1024)
+                for name, g, w, atol in (("S", got[1], want[1], 1e-3), ("SS", got[2], want[2], 1e-2)):
+                    ok, e = within(g, w, 1e-4, atol * scale)
+                    check(ok, f"nb_stats disagrees with its plain version (C {c}, "
+                              f"d {d}, n {n}, {name}, max err {e})")
+                    err = max(err, e)
+    print(f"  nb_stats C 2/13 x d 10/129 x n 1024/70000: counts exact, max |err| "
+          f"{err:.3g} (rtol 1e-4, atol 1e-3/1e-2 per 1024 rows)")
+
+    n, d, c = 5_000_000, 10, 2
+    X = randn((n, d), torch.float32, dev, 46)
+    y = labels(n, c, 47)
+    first, again, plain = nb_stats(X, y, c), nb_stats(X, y, c), nb_stats_ref(X, y, c)
+    onehot = torch.nn.functional.one_hot(y.clamp(min=0).long(), c).double()
+    onehot *= (y >= 0)[:, None]
+    Xd = X.double()
+    exact = (onehot.sum(0), onehot.T @ Xd, onehot.T @ (Xd * Xd))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    nerr = max(normwise(g, w) for g, w in zip(first, exact))
+    print(f"  nb_stats 5M x 10, C 2: two launches bitwise equal: {same}; counts equal "
+          f"the plain version's: {torch.equal(first[0], plain[0])}; normwise err vs "
+          f"float64 {nerr:.3g} (limit {SUM_NORMWISE}), plain fp32 version vs float64 "
+          f"{max(normwise(g, w) for g, w in zip(plain, exact)):.3g}")
+    check(same, "nb_stats is not bitwise repeatable")
+    check(torch.equal(first[0], plain[0]) and nerr <= SUM_NORMWISE,
+          "nb_stats strays from the float64 statistics at 5M x 10")
+    del onehot, Xd
+
+    rows = {}
+    for m in (n, 50_000):
+        Xm, ym = X[:m], y[:m]
+        G = torch.cat([torch.ones((m, 1), device=dev), Xm, Xm * Xm], 1)[ym >= 0]
+        y64 = ym[ym >= 0].long()
+        rows[m] = (timer.ms(lambda: nb_stats(Xm, ym, c)),
+                   timer.ms(lambda: nb_stats_ref(Xm, ym, c)),
+                   library_time(timer, lambda: torch.zeros((c, 1 + 2 * d), device=dev)
+                                .index_add_(0, y64, G), "nb_stats"),
+                   *bound(m * (3.0 * d + 1), 4.0 * (m * (d + 1) + c * (1 + 2 * d)),
+                          torch.float32))
+        print(f"  nb_stats {m} x {d} fp32, C {c}: kernel {rows[m][0]:.4f} ms, bound "
+              f"{rows[m][3]:.4f} ms ({rows[m][4]}), plain {rows[m][1]:.4f} ms, "
+              f"library index_add_ {rows[m][2]} ms")
+    ms, plain_ms, library_ms, bound_ms, bound_by = rows[n]
+    return {"name": "nb_stats", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "shape": f"n {n} d {d} C {c} fp32"}
+
+
+def logreg_sgd_phase(dev, timer) -> dict:
+    from repro_torch.kernels.common import pad_axis, round_up
+    from repro_torch.kernels.logreg_sgd.ops import logreg_sgd_batched
+    from repro_torch.kernels.logreg_sgd.ref import sgd_chunks_ref
+
+    def plain(X, y, batch, lr):
+        p, l, _ = X.shape
+        lp = round_up(l, batch)
+        mask = pad_axis(torch.ones((p, l), device=dev), 1, lp)
+        return sgd_chunks_ref(pad_axis(X, 1, lp), pad_axis(y, 1, lp), mask,
+                              lam=1e-3, lr=lr, batch=batch)
+
+    def data(p, l, d, seed):
+        X = randn((p, l, d), torch.float32, dev, seed)
+        return X, (randn((p, l), torch.float32, dev, seed + 1) > 0).float()
+
+    err = 0.0
+    for (l, batch) in ((512, 64), (1000, 50), (4096, 128)):
+        for d in (8, 100):
+            X, y = data(1, l, d, 48)
+            got = logreg_sgd_batched(X, y, lam=1e-3, lr=0.3, batch=batch)
+            want = plain(X, y, batch, 0.3)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                ok, e = within(g, w, 2e-4, 2e-5)
+                check(ok, f"logreg_sgd disagrees with its plain version (l {l}, "
+                          f"batch {batch}, d {d}, max err {e})")
+                err = max(err, e)
+    l, d, batch, p = 10_000, 10, 64, 500
+    X, y = data(p, l, d, 50)
+    got = logreg_sgd_batched(X, y, lam=1e-3, lr=0.5, batch=batch)
+    again = logreg_sgd_batched(X, y, lam=1e-3, lr=0.5, batch=batch)
+    want = plain(X, y, batch, 0.5)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        ok, e = within(g, w, 2e-4, 2e-5)
+        check(ok, f"logreg_sgd disagrees with its plain version (p {p} chunks of "
+                  f"{l} x {d}, max err {e})")
+        err = max(err, e)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"  logreg_sgd (512,64)/(1000,50)/(4096,128) x d 8/100 and p {p} chunks "
+          f"of {l} x {d}: max |err| {err:.3g} (rtol 2e-4, atol 2e-5); two launches "
+          f"bitwise equal: {same}")
+    check(same, "logreg_sgd is not bitwise repeatable")
+
+    rows = {}
+    steps = -(-l // batch)
+    for q in (1, p):
+        Xq, yq = X[:q], y[:q]
+        rows[q] = (timer.ms(lambda: logreg_sgd_batched(Xq, yq, lam=1e-3, lr=0.5, batch=batch)),
+                   timer.ms(lambda: plain(Xq, yq, batch, 0.5), iters=5),
+                   None,
+                   *bound(q * (l * (4.0 * d + 6) + steps * 6.0 * d),
+                          4.0 * q * (l * (d + 1) + d + 1), torch.float32))
+        print(f"  logreg_sgd {q} chunk(s) of {l} x {d}, batch {batch}: kernel "
+              f"{rows[q][0]:.4f} ms, bound {rows[q][3]:.6f} ms ({rows[q][4]}), "
+              f"{steps} dependent steps per chunk, plain {rows[q][1]:.4f} ms, "
+              f"no library call")
+    ms, plain_ms, library_ms, bound_ms, bound_by = rows[1]
+    return {"name": "logreg_sgd", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "shape": f"1 chunk l {l} d {d} batch {batch} fp32"}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: reduced model, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -375,6 +608,191 @@ def where_time_goes(eng, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 6 and 7: the analytics engine
+# ---------------------------------------------------------------------------
+
+ANALYTICS_FAMILIES = ("linreg", "gaussian_nb", "logreg")
+STATS_NORMWISE = 2e-4        # card vs CPU statistics, fp32 sums in two orders
+
+
+def analytics_tables(n, d, device):
+    from repro_torch.data.synthetic import make_classification, make_regression
+    from repro_torch.data.tabular import ArrayBackend
+
+    reg = ArrayBackend(*make_regression(n, d=d, seed=0), device=device)
+    cls = ArrayBackend(*make_classification(n, d=d, n_classes=2, seed=1), device=device)
+    return {"linreg": reg, "gaussian_nb": cls, "logreg": cls}
+
+
+def family_params(family, P):
+    if family == "logreg":
+        return {"chunk_size": P.logreg_chunk, "lam": P.logreg_lam}
+    return {"lam": P.logreg_lam} if family == "linreg" else {}
+
+
+def plan_key(plan):
+    return [(s.rng.lo, s.rng.hi, s.sign, s.model_id) for s in plan.steps]
+
+
+def analytics_parity(dev) -> None:
+    """The engine over tables on the card against the same engine over the
+    same numpy data on the CPU (the kernels' plain versions)."""
+    from repro_torch.configs.paper import PAPER_WORKLOAD as P
+    from repro_torch.core.descriptors import Range
+    from repro_torch.core.engine import IncrementalAnalyticsEngine
+
+    n, d, size = 200_000, 10, 20_000
+    rng = np.random.default_rng(0)
+    warm = [Range(int(lo), int(lo) + size) for lo in rng.integers(0, n - size, 6)]
+    queries = []
+    for _ in range(8):
+        m = max(int(rng.normal(size, size / 4)), 1000)
+        lo = int(rng.integers(0, n - m))
+        queries.append(Range(lo, lo + m))
+    tables = {name: analytics_tables(n, d, device) for name, device in (("cuda", dev), ("cpu", "cpu"))}
+    for family in ANALYTICS_FAMILIES:
+        params = family_params(family, P)
+        runs = {}
+        for name, backends in tables.items():
+            eng = IncrementalAnalyticsEngine(
+                backends[family], materialize="chunks" if family == "logreg" else "always")
+            eng.warm(family, warm, **params)
+            runs[name] = [(plan_key(r.plan), r.used_reuse, r.stats)
+                          for r in (eng.query(family, q, **params) for q in queries)]
+        same = all(a[:2] == b[:2] for a, b in zip(runs["cuda"], runs["cpu"]))
+        err = max(normwise(getattr(a[2], f.name), getattr(b[2], f.name))
+                  for a, b in zip(runs["cuda"], runs["cpu"])
+                  for f in dataclasses.fields(a[2]))
+        reused = sum(r[1] for r in runs["cuda"])
+        print(f"  {family:12s} {len(queries)} queries ({reused} reused): identical plans "
+              f"and reuse: {same}; stats normwise err {err:.3g} (limit {STATS_NORMWISE})")
+        check(same, f"{family}: the card's plans differ from the CPU's")
+        check(err <= STATS_NORMWISE, f"{family}: card and CPU statistics differ by {err}")
+
+
+def analytics_profile(eng, family, params, rng, n, P, dev, queries: int = 10) -> None:
+    """torch.profiler over a few more queries and their baselines: device
+    busy share of the wall time, and the kernels that take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.descriptors import Range
+
+    sizes = [min(max(int(rng.normal(P.query_mean, P.query_std)), 1000), n - 1)
+             for _ in range(queries)]
+    qs = [Range(lo, lo + m) for m in sizes for lo in [int(rng.integers(0, n - m))]]
+    for label, fn in (("engine", eng.query), ("baseline", eng.baseline)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for q in qs:
+                fn(family, q, **params)
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3 / queries
+        rows = [(e.key, e.self_device_time_total / 1e3 / queries)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(ms for _, ms in rows)
+        top = ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in sorted(rows, key=lambda r: -r[1])[:3])
+        print(f"    profiled {label}: {wall:.3f} ms per query, device busy {busy:.4f} ms "
+              f"({busy / wall:.1%}); top device ms per query: {top or 'none seen'}")
+
+
+def analytics_main_path(dev) -> dict:
+    """The paper's workload through ``IncrementalAnalyticsEngine`` on the
+    card, against ``baseline`` on the same queries."""
+    from repro_torch.configs.paper import PAPER_WORKLOAD as P
+    from repro_torch.core.descriptors import Range, coalesce
+    from repro_torch.core.engine import IncrementalAnalyticsEngine
+    from repro_torch.kernels.linreg_stats import kernel as lk
+    from repro_torch.kernels.logreg_sgd import kernel as sk
+    from repro_torch.kernels.nb_stats import kernel as nk
+
+    n, d, n_queries = P.n_points, P.dim, 100
+    print(f"  workload: {n} x {d} rows per table, models of {P.model_size_mean} rows "
+          f"to coverage 0.6, {n_queries} queries of N({P.query_mean}, {P.query_std}) "
+          f"rows per family (the paper runs {P.n_queries}), logreg chunk "
+          f"{P.logreg_chunk}, lambda {P.logreg_lam}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tables = analytics_tables(n, d, dev)
+    resident = sum(t.numel() * t.element_size()
+                   for be in (tables["linreg"], tables["logreg"]) for t in (be.X, be.y))
+    torch.cuda.synchronize(dev)
+    print(f"  base tables on the card: {resident / 2**20:.0f} MiB, made and copied in "
+          f"{time.perf_counter() - t0:.1f} s")
+    kernels = {"linreg_stats": lk.KERNEL, "nb_stats": nk.KERNEL, "logreg_sgd": sk.KERNEL}
+    for k in kernels.values():
+        k.launches = 0
+    rng = np.random.default_rng(0)
+    for family in ANALYTICS_FAMILIES:
+        params = family_params(family, P)
+        before = {name: k.launches for name, k in kernels.items()}
+        eng = IncrementalAnalyticsEngine(
+            tables[family], materialize="chunks" if family == "logreg" else "always")
+        ranges = []
+        while sum(r.size for r in coalesce(ranges)) / n < 0.6:
+            lo = int(rng.integers(0, n - P.model_size_mean))
+            ranges.append(Range(lo, lo + P.model_size_mean))
+        t0 = time.perf_counter()
+        eng.warm(family, ranges, **params)
+        warm_s = time.perf_counter() - t0
+        t_ours = t_base = 0.0
+        rows_ours = rows_base = reused = 0
+        split = dict.fromkeys(("optimizer_s", "io_s", "compute_s", "merge_s"), 0.0)
+        samples = []
+        for _ in range(n_queries):
+            size = min(max(int(rng.normal(P.query_mean, P.query_std)), 1000), n - 1)
+            lo = int(rng.integers(0, n - size))
+            q = Range(lo, lo + size)
+            t0 = time.perf_counter()
+            r = eng.query(family, q, **params)
+            torch.cuda.synchronize(dev)
+            t_ours += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            base = eng.baseline(family, q, **params)
+            torch.cuda.synchronize(dev)
+            t_base += time.perf_counter() - t0
+            reused += int(r.used_reuse)
+            rows_ours += r.plan.base_points
+            rows_base += base.plan.base_points
+            for key in split:
+                split[key] += getattr(r.timings, key)
+            if r.used_reuse and len(samples) < 5:
+                samples.append((r.model, base.model))
+        print(f"  {family:12s} warm-up {len(ranges)} models in {warm_s:.2f} s, coverage "
+              f"{eng.coverage(family):.0%}; reused {reused}/{n_queries} queries; engine "
+              f"{t_ours:.3f} s vs baseline {t_base:.3f} s ({t_base / t_ours:.2f}x); base "
+              f"rows scanned {rows_ours} vs {rows_base}; store {len(eng.store)} models, "
+              f"{eng.store.nbytes()} B")
+        print("    engine time split (ExecTimings, s): "
+              + ", ".join(f"{k[:-2]} {v:.4f}" for k, v in split.items()))
+        analytics_profile(eng, family, params, rng, n, P, dev)
+        print(f"    launches (warm-up, {n_queries} queries and baselines, 10 profiled "
+              f"queries and baselines): "
+              f"{ {name: k.launches - before[name] for name, k in kernels.items()} }")
+        check(reused > 0, f"{family}: no query reused a materialized model")
+        for model, base_model in samples:
+            if family == "linreg":
+                err = normwise(model.weights, base_model.weights)
+            elif family == "gaussian_nb":
+                err = max(normwise(model.mu, base_model.mu), normwise(model.var, base_model.var))
+            else:
+                continue     # a mixture over other chunk boundaries is another model
+            check(err <= 1e-3, f"{family}: a reused model strays from baseline's by {err}")
+        if family != "logreg":
+            print(f"    {len(samples)} reused queries against baseline: normwise err "
+                  f"within 1e-3 (weights / NB moments)")
+    counts = {name: k.launches for name, k in kernels.items()}
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"  analytics main-path launches: {counts}; max memory allocated "
+          f"{mem / 2**20:.0f} MiB (resident tables {resident / 2**20:.0f} MiB)")
+    check(all(v > 0 for v in counts.values()),
+          f"a statistics kernel was not launched on the analytics path: {counts}")
+    check(mem >= resident, "max memory allocated does not cover the resident tables")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -404,12 +822,15 @@ def main() -> int:
 
     timer = Timer(dev)
     print("[2] kernels vs plain versions on the card")
-    rows = [extend_phase(dev, timer), decode_phase(dev, timer)]
+    rows = [extend_phase(dev, timer), decode_phase(dev, timer),
+            linreg_stats_phase(dev, timer), nb_stats_phase(dev, timer),
+            logreg_sgd_phase(dev, timer)]
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms")
+    del timer
 
     print("[3] reduced deepseek-67b (fp32): card vs CPU")
     reduced_parity(dev)
@@ -418,12 +839,25 @@ def main() -> int:
     counts, eng = main_path(dev)
     print("[5] where the time goes (torch.profiler, full width)")
     where_time_goes(eng, dev)
+    del eng
+    torch.cuda.empty_cache()
+
+    print("[6] analytics engine (200K x 10): card vs CPU")
+    analytics_parity(dev)
+    print("[7] analytics main path: the paper's workload on the card")
+    counts.update(analytics_main_path(dev))
 
     sources = {
         "extend_attention": ("src/repro_torch/kernels/extend_attention/csrc/extend_attention.cu",
                              "src/repro/kernels/extend_attention/kernel.py:108"),
         "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:103"),
+        "linreg_stats": ("src/repro_torch/kernels/linreg_stats/csrc/linreg_stats.cu",
+                         "src/repro/kernels/linreg_stats/kernel.py:43"),
+        "nb_stats": ("src/repro_torch/kernels/nb_stats/csrc/nb_stats.cu",
+                     "src/repro/kernels/nb_stats/kernel.py:52"),
+        "logreg_sgd": ("src/repro_torch/kernels/logreg_sgd/csrc/logreg_sgd.cu",
+                       "src/repro/kernels/logreg_sgd/kernel.py:59"),
     }
     kernels = [{"name": r["name"], "route": "cuda",
                 "source": sources[r["name"]][0],

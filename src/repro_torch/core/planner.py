@@ -1,19 +1,114 @@
-"""Delta updates: edit-rebuild planning (reuse-prefix + rebuild-suffix).
+"""Plan execution (Fig 1c) and edit-rebuild planning.
 
-A framework-free copy of the serving half of ``repro.core.planner``
-(``token_divergence``, ``EditPlan``, ``plan_edit``); the analytics planner
-waits for ROADMAP.md §1 item 5.
+A framework-free copy of ``repro.core.planner``.  ``execute`` turns an
+optimizer path into a solved model: group families combine/uncombine
+materialized statistics and scan only the base-data segments the plan asks
+for; monoid families (logreg) fit chunk models for uncovered segments
+(Alg 2 lines 9–11) and may materialize them for future queries.
+``plan_edit`` prices serving an edited document (reuse-prefix +
+rebuild-suffix).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import numpy as np
 
 from .cost import CostModel
-from .descriptors import DescriptorIndex, covered_size
+from .descriptors import DescriptorIndex, Range, covered_size
+from .families import ModelFamily
+from .optimizer import Plan
+from .store import ModelStore
 
+
+@dataclass
+class ExecTimings:
+    """Fig 5 decomposition."""
+
+    optimizer_s: float = 0.0
+    io_s: float = 0.0        # base-data fetches + model loads
+    compute_s: float = 0.0   # stats passes / chunk SGD
+    merge_s: float = 0.0     # stat combine/uncombine + solve
+
+    @property
+    def total_s(self) -> float:
+        return self.optimizer_s + self.io_s + self.compute_s + self.merge_s
+
+
+@dataclass
+class ExecResult:
+    model: Any
+    stats: Any
+    plan: Plan
+    timings: ExecTimings
+    materialized_ids: list[str] = field(default_factory=list)
+
+
+def execute(
+    plan: Plan,
+    family: ModelFamily,
+    store: ModelStore,
+    backend: Any,  # data backend: fetch(Range) -> (X, y)
+    params: dict,
+    *,
+    materialize_chunks: bool = True,
+) -> ExecResult:
+    timings = ExecTimings(optimizer_s=plan.optimizer_seconds)
+    pos: Optional[Any] = None
+    neg: Optional[Any] = None
+    new_ids: list[str] = []
+
+    chunk_size = int(params.get("chunk_size", 10_000))
+    monoid = not family.supports_delete
+
+    # Chunk materialization below may trigger eviction; pin every model this
+    # plan still has to read so a put cannot invalidate a later step
+    # (put-during-execute).
+    with store.pinned(plan.models_used):
+        for step in plan.steps:
+            if step.model_id is not None:
+                t0 = time.perf_counter()
+                stats = store.get(step.model_id).stats
+                timings.io_s += time.perf_counter() - t0
+            else:
+                t0 = time.perf_counter()
+                X, y = backend.fetch(step.rng)
+                timings.io_s += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                if monoid and materialize_chunks:
+                    # fit chunk-by-chunk and materialize each chunk (§4)
+                    stats = None
+                    for s in range(0, step.rng.size, chunk_size):
+                        sub = Range(step.rng.lo + s, min(step.rng.lo + s + chunk_size, step.rng.hi))
+                        cs = family.compute_stats(X[s : s + chunk_size], y[s : s + chunk_size], params)
+                        new_ids.append(store.put(family.name, sub, cs, meta={"chunked": True}))
+                        stats = cs if stats is None else stats + cs
+                else:
+                    stats = family.compute_stats(X, y, params)
+                timings.compute_s += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            if step.sign > 0:
+                pos = stats if pos is None else pos + stats
+            else:
+                neg = stats if neg is None else neg + stats
+            timings.merge_s += time.perf_counter() - t0
+
+    if pos is None:
+        raise RuntimeError("empty plan")
+    t0 = time.perf_counter()
+    total = pos if neg is None else pos - neg
+    model = family.solve(total, params)
+    timings.merge_s += time.perf_counter() - t0
+    return ExecResult(model=model, stats=total, plan=plan, timings=timings,
+                      materialized_ids=new_ids)
+
+
+# ---------------------------------------------------------------------------
+# Delta updates: edit-rebuild planning (reuse-prefix + rebuild-suffix)
+# ---------------------------------------------------------------------------
 
 def token_divergence(old_ids, new_ids) -> int:
     """Length of the common prefix of two token sequences.

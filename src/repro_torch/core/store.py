@@ -1,16 +1,23 @@
-"""Pin-aware, cost-model-weighted eviction shared by byte-budgeted stores.
+"""Materialized-model store, and the pin-aware eviction it shares with the
+serving store.
 
 A framework-free copy of the pinning and eviction half of
-``repro.core.store.PinnedStore``.  Persistence (npz + manifest snapshots),
-residency tiers and the background writer wait for ROADMAP.md §1 item 6.
+``repro.core.store.PinnedStore`` and of ``ModelStore`` / ``StoredModel``
+(descriptors + sufficient statistics, byte budget).  Persistence (npz +
+manifest snapshots), residency tiers and the background writer wait for
+ROADMAP.md §1 item 6.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Iterable, Optional
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Iterable, Iterator, Optional
 
 from .cost import CostModel
+from .descriptors import DescriptorIndex, Range
+from .suffstats import STATS_FAMILIES, Combinable
 
 #: eviction policies understood by :class:`PinnedStore`
 EVICTION_POLICIES = ("cost", "lru")
@@ -117,3 +124,100 @@ class PinnedStore:
                 break  # everything under pressure is pinned, or one is left
             self._evict(self._pick_victim(candidates))
             self.evictions += 1
+
+
+@dataclass
+class StoredModel:
+    model_id: str
+    family: str
+    rng: Range
+    stats: Combinable
+    created_s: float = field(default_factory=time.time)
+    last_used_s: float = field(default_factory=time.time)
+    hits: int = 0
+    meta: dict = field(default_factory=dict)
+
+    @property
+    def nbytes(self) -> int:
+        return self.stats.nbytes
+
+
+class ModelStore(PinnedStore):
+    """Per-family materialized models, indexed for Alg 3/4."""
+
+    def __init__(self, byte_budget: Optional[int] = None, *,
+                 cost_model: Optional[CostModel] = None,
+                 policy: Optional[str] = None) -> None:
+        super().__init__(cost_model=cost_model, policy=policy)
+        self._models: dict[str, StoredModel] = {}
+        self._indexes: dict[str, DescriptorIndex] = {}
+        self._seq = 0
+        self.byte_budget = byte_budget
+        self.evictions = 0
+
+    # -- crud --------------------------------------------------------------
+    def put(self, family: str, rng: Range, stats: Combinable, meta: dict | None = None,
+            model_id: str | None = None) -> str:
+        if family not in STATS_FAMILIES:
+            raise KeyError(f"unknown family {family!r}")
+        if model_id is None:
+            self._seq += 1
+            model_id = f"{family}:{rng.lo}-{rng.hi}#{self._seq}"
+        sm = StoredModel(model_id=model_id, family=family, rng=rng,
+                         stats=stats.to_numpy(), meta=meta or {})
+        self._models[model_id] = sm
+        self.index(family).add(model_id, rng)
+        self._maybe_evict()
+        return model_id
+
+    def get(self, model_id: str) -> StoredModel:
+        sm = self._models[model_id]
+        sm.last_used_s = time.time()
+        sm.hits += 1
+        return sm
+
+    def drop(self, model_id: str) -> None:
+        sm = self._models.pop(model_id)
+        self.index(sm.family).remove(model_id)
+
+    def index(self, family: str) -> DescriptorIndex:
+        if family not in self._indexes:
+            self._indexes[family] = DescriptorIndex()
+        return self._indexes[family]
+
+    def models(self, family: str | None = None) -> Iterator[StoredModel]:
+        for sm in self._models.values():
+            if family is None or sm.family == family:
+                yield sm
+
+    def __len__(self) -> int:
+        return len(self._models)
+
+    # -- accounting ----------------------------------------------------------
+    def nbytes(self, family: str | None = None) -> int:
+        return sum(sm.nbytes for sm in self.models(family))
+
+    def model_bytes(self, family: str) -> dict[str, int]:
+        return {sm.model_id: sm.nbytes for sm in self.models(family)}
+
+    def coverage(self, family: str, universe: Range) -> float:
+        return self.index(family).coverage(universe)
+
+    def _entries(self) -> dict:
+        return self._models
+
+    def _evict(self, victim: StoredModel) -> None:
+        self.drop(victim.model_id)
+
+    # -- persistence ----------------------------------------------------------
+    def save(self, path: str | Path) -> None:
+        raise NotImplementedError(
+            "ModelStore.save is not ported to repro_torch yet: ROADMAP.md §1 "
+            "item 6 (persistence)")
+
+    @classmethod
+    def load(cls, path: str | Path, byte_budget: Optional[int] = None,
+             verify: bool = True) -> "ModelStore":
+        raise NotImplementedError(
+            "ModelStore.load is not ported to repro_torch yet: ROADMAP.md §1 "
+            "item 6 (persistence)")

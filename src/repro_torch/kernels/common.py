@@ -10,12 +10,17 @@ the rule.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 
+def cdiv(x: int, m: int) -> int:
+    return (x + m - 1) // m
+
+
 def round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+    return cdiv(x, m) * m
 
 
 def bucket_len(x: int, bucket: int, *, floor: int = 1) -> int:
@@ -53,3 +58,14 @@ def uses_kernel(x: torch.Tensor) -> bool:
             f"{torch.cuda.get_device_name(x.device)} has compute capability "
             f"{cap[0]}.{cap[1]}; the port's kernels need 9.0 (Hopper)")
     return True
+
+
+def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """A kernel's small results as float64 numpy arrays, in one copy (which
+    also waits for the device, so the caller's clock times real work)."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].astype(np.float64).reshape(t.shape))
+        at += t.numel()
+    return out

@@ -1,6 +1,6 @@
 """Import isolation of the PyTorch port: ``src/repro_torch/`` and
 ``chip_smoke.py`` import neither JAX nor the JAX package, and the port's
-serving modules import with ``jax`` blocked."""
+serving and analytics modules import with ``jax`` blocked."""
 import ast
 import os
 import subprocess
@@ -39,6 +39,7 @@ def test_port_imports_with_jax_blocked():
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             "import repro_torch.serve, repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "import repro_torch.core.engine, repro_torch.data, repro_torch.launch.analytics\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
