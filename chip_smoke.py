@@ -5,18 +5,22 @@
 
 from the root of a checkout, on a machine with a CUDA card of compute
 capability 9.0 and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``).  It builds the
-port's CUDA kernels from ``src/repro_torch/kernels/*/csrc`` and runs:
+port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
+``nvcc`` each, in parallel) and runs:
 
   1. device: the card's name, count, and ``nvidia-smi`` name/power limit;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes of the full-width serving path, in fp32 (rtol 1e-4 / atol 1e-5)
      and bf16 (against the fp32 plain version on the same bf16 values,
      rtol/atol 2e-2, for the bf16 output rounding); decode's bit-invariance
-     to padded capacity; each kernel's time (CUDA events, L2 flushed
-     between launches) beside its bound, the plain version's time and one
-     PyTorch library call's time (a yardstick the port never calls);
+     to padded capacity; the int8 dequant kernel bitwise against its plain
+     version; each kernel's time (CUDA events, L2 flushed between
+     launches) beside its bound, the plain version's time and one PyTorch
+     library call's time (a yardstick the port never calls);
   3. reduced ``deepseek-67b`` (fp32) in ``ServeEngine`` on the card vs the
-     same on the CPU: identical plans and greedy tokens;
+     same on the CPU: identical plans and greedy tokens, with a plain store
+     and with an int8 store on host and disk tiers (identical segment ids
+     and tier counters too);
   4. the main path at full width: ``deepseek-67b`` widths, bf16, depth cut
      from 95 to 24 layers so the weights fit one 80 GB card, a 4096-token
      document, chunk 128, requests with prefixes 2048, 4096, 3072 (16 new
@@ -24,15 +28,23 @@ port's CUDA kernels from ``src/repro_torch/kernels/*/csrc`` and runs:
      counters read around it;
   5. where the time goes: ``torch.profiler`` over full-width decode steps
      and one 128-token extend — device busy and idle time, top kernels;
-  6. the analytics engine on the card vs the same engine on the CPU (the
+  6. residency at full width, on phase 4's model: the same requests over
+     an int8 segment store (every reused segment dequantized by the
+     ``quant_kv`` kernel), over the int8 store with host and disk tiers
+     below a device budget, over a bf16 store with the same tiers, and
+     from a snapshot of the tiered int8 store reloaded from disk, with the
+     ``quant_kv`` launch counter read around the phase;
+  7. the analytics engine on the card vs the same engine on the CPU (the
      kernels' plain versions): 200K x 10 rows made from a seed, one query
      script per family, identical plans and reuse, statistics within an
      fp32 tolerance;
-  7. the analytics main path: the paper's workload (5M x 10 base tables
+  8. the analytics main path: the paper's workload (5M x 10 base tables
      resident on the card, 50K-row models warmed to 0.6 coverage, 100
      queries of N(50K, 12.5K) rows per family — the paper runs 1000)
      through ``IncrementalAnalyticsEngine``, against ``baseline``, with the
-     statistics kernels' launch counters read around it.
+     statistics kernels' launch counters read around it; each family's
+     model store is then saved, reloaded, and answers 10 more queries with
+     the live store's plans and bitwise statistics.
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -43,14 +55,17 @@ times them at the analytics path's shapes.
 Any failure exits non-zero.  The last two lines are the ``nvidia-smi``
 line and ``{"ok": true, "device": {...}}``; the line before them lists
 every kernel with its launches (on its own main path: serving for the
-attention kernels, analytics for the statistics kernels) and times.
+attention kernels, the residency phase for the dequant kernel, analytics
+for the statistics kernels) and times.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -267,6 +282,22 @@ def normwise(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
+def device_ms(fn, kernel: str, launches: int = 20) -> float:
+    """Mean device time of one launch of the kernels whose name holds
+    ``kernel``, from ``torch.profiler`` (no host time in it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3 / launches
+
+
 def library_time(timer, fn, label):
     try:
         return timer.ms(fn)
@@ -467,15 +498,74 @@ def logreg_sgd_phase(dev, timer) -> dict:
             "max_abs_err": err, "shape": f"1 chunk l {l} d {d} batch {batch} fp32"}
 
 
+def quant_kv_phase(dev, timer) -> dict:
+    """The int8 KV dequant kernel bitwise against its plain version (one
+    fp32 multiply, one rounding to the output type), then timed on a
+    stored leaf of the full-width path."""
+    from repro_torch.core.quant import quantize_leaf
+    from repro_torch.kernels.quant_kv.ops import dequantize_leaf
+    from repro_torch.kernels.quant_kv.ref import dequantize_leaf_ref
+
+    # tests/test_quant.py's per-head rank-5 and headless rank-4 leaves, S
+    # not a multiple of the block, cols 4/8 (scalar path), 16, 24, 128, and
+    # the path's own leaves; every leaf starts with an all-zero block
+    cases = [((2, 1, 24, 2, 8), 8), ((2, 1, 16, 2, 4), 8), ((3, 1, 17, 4, 16), 4),
+             ((2, 1, 20, 3, 24), 8), ((3, 1, 17, 24), 8), ((2, 1, 40, 128), 16),
+             ((24, 1, 128, 8, 128), 64), ((24, 1, 4096, 8, 128), 64)]
+    err = 0.0
+    for shape, block in cases:
+        x = randn(shape, torch.float32, dev, 60) * 3
+        x[:, :, :block] = 0
+        q, s = quantize_leaf(x, block)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = dequantize_leaf(q, s, block=block, dtype=dtype)
+            want = dequantize_leaf_ref(q, s, block=block, dtype=dtype)
+            torch.cuda.synchronize()
+            e = float((got.float() - want.float()).abs().max())
+            check(torch.equal(got, want), f"quant_kv differs from its plain version "
+                                          f"({shape}, block {block}, {dtype}, max err {e})")
+            err = max(err, e)
+    print(f"  quant_kv {len(cases)} leaves x fp32/bf16 out: bitwise equal to the plain "
+          f"version (max |err| {err})")
+
+    rows = {}
+    for S in (128, 4096):
+        d0, d1, H, cols, block = 24, 1, 8, 128, 64
+        x = randn((d0, d1, S, H, cols), torch.bfloat16, dev, 61)
+        q, s = quantize_leaf(x, block)
+        nb = S // block
+        qv, sv = q.view(d0, d1, nb, block, H, cols), s.view(d0, d1, nb, 1, H, 1)
+        for dtype in (torch.bfloat16, torch.float32):
+            out_bytes = q.numel() * torch.empty((), dtype=dtype).element_size()
+            call = lambda: dequantize_leaf(q, s, block=block, dtype=dtype)  # noqa: E731
+            rows[S, dtype] = (
+                timer.ms(call),
+                timer.ms(lambda: dequantize_leaf_ref(q, s, block=block, dtype=dtype)),
+                library_time(timer, lambda: torch.mul(qv, sv), "quant_kv"),
+                *bound(float(q.numel()), q.numel() + out_bytes + 4.0 * s.numel(),
+                       torch.float32))
+            r = rows[S, dtype]
+            print(f"  quant_kv leaf ({d0}, {d1}, {S}, {H}, {cols}) int8 -> "
+                  f"{str(dtype)[6:]}: kernel {r[0]:.4f} ms (device time alone "
+                  f"{device_ms(call, 'dequant_'):.4f} ms, L2 warm), bound {r[3]:.6f} ms "
+                  f"({r[4]}), plain {r[1]:.4f} ms, library torch.mul (fp32 out) {r[2]} ms")
+    ms, plain_ms, library_ms, bound_ms, bound_by = rows[128, torch.bfloat16]
+    return {"name": "quant_kv", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "shape": "leaf (24, 1, 128, 8, 128) block 64 int8 -> bf16"}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: reduced model, card vs CPU
 # ---------------------------------------------------------------------------
 
 def reduced_parity(dev) -> None:
     from repro_torch.configs import get_config, reduced
+    from repro_torch.core.descriptors import Range
     from repro_torch.models.common import tree_map_with_path
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kv_cache import SegmentStore
 
     cfg = reduced(get_config("deepseek-67b"))
     cpu_model = LM(cfg, device="cpu")
@@ -483,20 +573,54 @@ def reduced_parity(dev) -> None:
     gpu_model = LM(cfg, device=dev)
     gpu_params = tree_map_with_path(lambda _, x: x.to(dev), cpu_params)
     doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 256).astype(np.int32)
-    engines = {name: ServeEngine(m, p, doc, chunk_tokens=64, device=m.device)
-               for name, m, p in (("cpu", cpu_model, cpu_params),
-                                  ("cuda", gpu_model, gpu_params))}
-    for prefix, n_new in ((200, 4), (256, 4), (130, 4)):
-        out = {}
-        for name, eng in engines.items():
-            toks, plan = eng.generate(prefix, n_new)
-            out[name] = (toks, [(s.rng.lo, s.rng.hi, s.model_id)
-                                for s in plan.steps])
-        print(f"  prefix {prefix}: cuda tokens {out['cuda'][0]} cpu tokens "
-              f"{out['cpu'][0]}, plan steps {len(out['cuda'][1])}")
-        check(out["cuda"] == out["cpu"],
-              f"reduced model: card and CPU disagree at prefix {prefix}: {out}")
-    print("  reduced cuda-vs-cpu: identical plans and tokens: True")
+    with torch.no_grad():
+        _, caches = cpu_model.prefill(cpu_params, {"tokens": torch.from_numpy(doc[None, :64])})
+    one = SegmentStore(precision="int8", device="cpu")
+    one.put(Range(0, 64), caches)
+    seg = one.nbytes()
+    spill = Path(tempfile.mkdtemp(prefix="repro_torch_smoke_"))
+    try:
+        for label, store_kw in (
+                ("plain store", None),
+                ("int8 store, host and disk tiers",
+                 dict(precision="int8", byte_budget=2 * seg + 1, host_budget=seg + 1))):
+            engines = {}
+            for name, m, p in (("cpu", cpu_model, cpu_params), ("cuda", gpu_model, gpu_params)):
+                store = None if store_kw is None else SegmentStore(
+                    spill_dir=spill / f"{name}-{len(engines)}", device=m.device, **store_kw)
+                engines[name] = ServeEngine(m, p, doc, chunk_tokens=64, device=m.device,
+                                            **({} if store is None else {"store": store}))
+            for prefix, n_new in ((200, 4), (256, 4), (130, 4), (256, 4)):
+                out = {}
+                for name, eng in engines.items():
+                    toks, plan = eng.generate(prefix, n_new)
+                    out[name] = (toks, [(s.rng.lo, s.rng.hi, s.model_id)
+                                        for s in plan.steps])
+                print(f"  {label}, prefix {prefix}: cuda tokens {out['cuda'][0]} cpu "
+                      f"tokens {out['cpu'][0]}, plan steps {len(out['cuda'][1])}")
+                check(out["cuda"] == out["cpu"],
+                      f"reduced model ({label}): card and CPU disagree at prefix "
+                      f"{prefix}: {out}")
+            st = {}
+            for name, eng in engines.items():
+                eng.store.flush_saves()
+                s = eng.store
+                st[name] = (sorted(s._segs), eng.builder.dequants, s.quantized,
+                            dict(s.demotions), dict(s.promotions), s.evictions,
+                            s.tier_bytes())
+            print(f"  {label}: segments {len(st['cuda'][0])}, dequants {st['cuda'][1]}, "
+                  f"quantized {st['cuda'][2]}, demotions {st['cuda'][3]}, promotions "
+                  f"{st['cuda'][4]}, evictions {st['cuda'][5]}; card == CPU: "
+                  f"{st['cuda'] == st['cpu']}")
+            check(st["cuda"] == st["cpu"],
+                  f"reduced model ({label}): store state differs: {st}")
+            if store_kw is not None:
+                check(st["cuda"][1] > 0 and min(st["cuda"][3].values()) > 0
+                      and min(st["cuda"][4].values()) > 0,
+                      f"reduced int8 tiered run skipped a tier or the dequant: {st['cuda']}")
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    print("  reduced cuda-vs-cpu: identical plans, tokens and stores: True")
 
 
 # ---------------------------------------------------------------------------
@@ -562,7 +686,9 @@ def main_path(dev) -> dict:
     print(f"  store: {len(eng.store)} segments, {eng.store.nbytes() / 2**20:.0f} MiB; "
           f"max memory allocated {mem / 2**30:.2f} GiB")
     print(f"  main-path launches: {counts}")
-    return counts, eng
+    ref = {"tokens": [r[1] for r in results], "logits": logits,
+           "store_bytes": eng.store.nbytes()}
+    return counts, eng, ref
 
 
 def where_time_goes(eng, dev) -> None:
@@ -608,7 +734,221 @@ def where_time_goes(eng, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: the analytics engine
+# phase 6: residency at full width
+# ---------------------------------------------------------------------------
+
+#: phase 4's requests, then a replay of the 4096-token prefix: once every
+#: segment is stored, a replay reads only stored copies (the 4096 request
+#: itself decoded from the KV it had just computed, before its int8 copies
+#: were stored), so it is what a reloaded snapshot must reproduce
+RESIDENCY_PREFIXES = (2048, 4096, 3072, 2048, 4096)
+
+
+def residency_cost_model():
+    """The serving calibration with a reuse prior of 4 stored-segment hits.
+
+    Tier moves are priced per victim: demote now plus a promotion per
+    expected hit, against a prefill per expected hit for a drop.  The
+    observed prior is (hits + prior) / (puts + 1); with the default prior 1
+    it falls to 1/17 by the end of the cold 2048 request, where a drop
+    (0.76 ms of expected prefill) undercuts a host demotion of a 6.3 MB int8
+    segment (0.84 ms), and a dropped segment is rebuilt in another plan:
+    the runs would not compare.  This document is requested four times.
+    """
+    from repro_torch.core.cost import serve_cost_model
+
+    cm = serve_cost_model()
+    cm.expected_reuses = 4.0
+    return cm
+
+
+def serve_requests(eng, prefixes, label: str) -> list[dict]:
+    out = []
+    for prefix in prefixes:
+        s0 = dataclasses.replace(eng.stats)
+        toks, plan = eng.generate(prefix, 16)
+        st = eng.stats
+        out.append({"prefix": prefix, "tokens": toks,
+                    "plan": [(s.rng.lo, s.rng.hi, s.model_id) for s in plan.steps],
+                    "reused": st.tokens_reused - s0.tokens_reused,
+                    "computed": st.tokens_computed - s0.tokens_computed,
+                    "prefill_s": st.prefill_s - s0.prefill_s,
+                    "decode_s": st.decode_s - s0.decode_s})
+        r = out[-1]
+        print(f"    {label} prefix {prefix}: prefill {r['prefill_s']:.3f} s ({r['reused']} "
+              f"reused, {r['computed']} computed), decode {16 / r['decode_s']:.1f} tok/s, "
+              f"tokens {toks[:8]}")
+    return out
+
+
+def tier_line(store) -> str:
+    return (f"tiers {store.tier_bytes()}, demotions {store.demotions}, promotions "
+            f"{store.promotions}, evictions {store.evictions}, quantized {store.quantized}, "
+            f"spill writes {store.spill_writes}")
+
+
+def residency_phase(base, ref, dev) -> int:
+    """Phase 4's requests over int8 and tiered stores on phase 4's model;
+    returns the ``quant_kv`` launches of the phase."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.extend_attention import kernel as ek
+    from repro_torch.kernels.quant_kv import kernel as qk
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kv_cache import SegmentStore
+
+    model, params, doc = base.model, base.params, base.doc
+
+    def engine(store):
+        return ServeEngine(model, params, doc, chunk_tokens=128, store=store, device=dev)
+
+    root = Path(tempfile.mkdtemp(prefix="repro_torch_smoke_"))
+    dequants = 0
+    for k in (ek.KERNEL, dk.KERNEL, qk.KERNEL):
+        k.launches = 0
+    try:
+        # 1. int8, device only
+        eng1 = engine(SegmentStore(precision="int8", cost_model=residency_cost_model(),
+                                   device=dev))
+        print("  1. int8 store, device only")
+        w1 = serve_requests(eng1, RESIDENCY_PREFIXES, "int8")
+        logits1, _, _ = eng1.builder.prefix_with_logits(doc, 3072, doc_id=eng1.doc_id,
+                                                        capacity=3088)
+        torch.cuda.synchronize(dev)
+        store1 = eng1.store
+        leaves = {len(s.quant.scales) for s in store1._segs.values() if s.quant is not None}
+        launches1 = qk.KERNEL.launches
+        dequants += eng1.builder.dequants
+        doc_bytes = store1.nbytes()
+        drift = float((logits1.float() - ref["logits"].float()).abs().max())
+        same_tok = [sum(a == b for a, b in zip(r["tokens"], t))
+                    for r, t in zip(w1, ref["tokens"])]
+        print(f"    {len(store1)} segments, all int8: {store1.quantized_segments() == len(store1)}; "
+              f"{leaves} quantized leaves each; dequants {eng1.builder.dequants}, quant_kv "
+              f"launches {launches1}")
+        print(f"    store {doc_bytes} B vs phase 4's bf16 store {ref['store_bytes']} B "
+              f"({doc_bytes / ref['store_bytes']:.3f}x); 3072-prefix logits max |d| vs "
+              f"the bf16 store's {drift:.4g} (max |logit| "
+              f"{float(ref['logits'].float().abs().max()):.4g}); tokens equal to phase 4's "
+              f"per request (of 16): {same_tok}; replay of 2048 vs its cold request: "
+              f"{sum(a == b for a, b in zip(w1[3]['tokens'], w1[0]['tokens']))}/16 "
+              f"(int8 copies vs the freshly computed bf16 KV; not gated)")
+        check(len(store1) > 0 and store1.quantized_segments() == len(store1),
+              "int8 store holds a segment at model precision")
+        check(len(leaves) == 1, f"segments with different quantized leaves: {leaves}")
+        n_leaves = leaves.pop()
+        check(eng1.builder.dequants > 0 and launches1 == eng1.builder.dequants * n_leaves,
+              f"quant_kv launches {launches1} != dequantized segments "
+              f"{eng1.builder.dequants} x {n_leaves} quantized leaves")
+        check(bool(torch.isfinite(logits1.float()).all()), "int8 logits not finite")
+        # the quantization error alone: the cold request's first segment was
+        # computed the same way for both stores
+        from repro_torch.core.quant import dequantize_tree
+        from repro_torch.models.common import tree_leaves
+
+        sid = next(iter(base.store._segs))
+        pairs = zip(tree_leaves(base.store._segs[sid].caches),
+                    tree_leaves(dequantize_tree(store1._segs[sid].caches,
+                                                store1._segs[sid].quant)))
+        kv_err = [(float((b.float() - a.float()).abs().max() / a.float().abs().max()),
+                   float((b.float() - a.float()).norm() / a.float().norm()))
+                  for a, b in pairs]
+        dequants += 1                    # this check's own dequantization
+        print(f"    KV of {sid}, int8 against bf16 per leaf: max |d| / max |x|, "
+              f"|d| / |x| = {[(f'{m:.3g}', f'{r:.3g}') for m, r in kv_err]}")
+        # the writer thread sees host arrays only: save_async copies the
+        # device-tier entries to the host before it returns
+        t0 = time.perf_counter()
+        check(store1.save_async(root / "snap1"), "save_async was refused")
+        capture_s = time.perf_counter() - t0
+        write_s = store1.flush_saves()
+        check(not store1.save_errors, f"background save failed: {store1.save_errors}")
+        print(f"    save_async of the all-device int8 store: the caller waited "
+              f"{capture_s:.3f} s (device-to-host copies), the writer {write_s:.3f} s more")
+        del eng1, store1, logits1
+        torch.cuda.empty_cache()
+
+        # 2. int8 with host and disk tiers under a quarter of the bytes each
+        tiers = dict(byte_budget=doc_bytes // 4, host_budget=doc_bytes // 4)
+        print(f"  2. int8 store, device budget {tiers['byte_budget']} B, host budget "
+              f"{tiers['host_budget']} B, spill directory")
+        eng2 = engine(SegmentStore(precision="int8", cost_model=residency_cost_model(),
+                                   spill_dir=root / "spill2", device=dev, **tiers))
+        w2 = serve_requests(eng2, RESIDENCY_PREFIXES, "int8 tiered")
+        store2 = eng2.store
+        store2.flush_saves()
+        dequants += eng2.builder.dequants
+        same = [r["tokens"] == s["tokens"] for r, s in zip(w2, w1)]
+        print(f"    {tier_line(store2)}; tokens identical to way 1: {same}; plans "
+              f"identical: {[r['plan'] == s['plan'] for r, s in zip(w2, w1)]}")
+        check(min(store2.demotions.values()) > 0 and min(store2.promotions.values()) > 0,
+              f"the tiered int8 run skipped a tier: {tier_line(store2)}")
+        check(all(same), "tiered int8 tokens differ from the untiered int8 run")
+        cm = store2.cost
+        for tier in ("host", "disk"):
+            seg = next((g for g in store2._segs.values() if g.tier == tier), None)
+            if seg is None:
+                continue
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            store2.promote(seg.seg_id)
+            torch.cuda.synchronize(dev)
+            print(f"    one promotion from {tier} ({seg.nbytes} B): "
+                  f"{(time.perf_counter() - t0) * 1e3:.2f} ms measured; the cost "
+                  f"model prices it at {cm.promote_s(seg.nbytes, tier) * 1e3:.2f} ms")
+
+        # 3. bf16 (lossless) with the same tiers
+        print("  3. bf16 store (precision fp32: lossless), same tiers")
+        eng3 = engine(SegmentStore(precision="fp32", cost_model=residency_cost_model(),
+                                   spill_dir=root / "spill3", device=dev, **tiers))
+        w3 = serve_requests(eng3, RESIDENCY_PREFIXES[:4], "bf16 tiered")
+        eng3.store.flush_saves()
+        same3 = [r["tokens"] == t for r, t in zip(w3, ref["tokens"])]
+        print(f"    {tier_line(eng3.store)}; tokens identical to phase 4's: {same3}")
+        check(min(eng3.store.demotions.values()) > 0,
+              f"the tiered bf16 run skipped a tier: {tier_line(eng3.store)}")
+        check(all(same3), "tiered bf16 tokens differ from phase 4's")
+        del eng3
+        torch.cuda.empty_cache()
+
+        # 4. snapshot of way 2, reloaded with the same tiers
+        print("  4. snapshot of way 2's store, reloaded")
+        t0 = time.perf_counter()
+        store2.save(root / "snap")
+        save_s = time.perf_counter() - t0
+        snap_bytes = sum(f.stat().st_size for f in (root / "snap").iterdir())
+        t0 = time.perf_counter()
+        store4 = SegmentStore.load(root / "snap", cost_model=residency_cost_model(),
+                                   precision="int8", spill_dir=root / "spill4",
+                                   device=dev, **tiers)
+        torch.cuda.synchronize(dev)
+        load_s = time.perf_counter() - t0
+        print(f"    save {save_s:.3f} s, load {load_s:.3f} s, snapshot {snap_bytes} B "
+              f"({len(store4)} segments, {store2.nbytes()} B resident), "
+              f"{tier_line(store4)}")
+        eng4 = engine(store4)
+        w4 = serve_requests(eng4, (4096,), "reloaded")
+        dequants += eng4.builder.dequants
+        print(f"    prefix build computed {w4[0]['computed'] - 1} tokens (plus the last "
+              f"prefix token's 1-token extend); tokens identical to way 2's replay: "
+              f"{w4[0]['tokens'] == w2[4]['tokens']}")
+        check(len(store4) == len(store2), "the snapshot lost segments")
+        check(w4[0]["computed"] == 1 and w4[0]["reused"] == 4095,
+              f"the reloaded store did not serve the prefix: {w4[0]}")
+        check(w4[0]["tokens"] == w2[4]["tokens"],
+              "the reloaded snapshot's tokens differ from the store it was saved from")
+        del eng2, store2, eng4, store4
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = qk.KERNEL.launches
+    print(f"  residency-phase launches: quant_kv {launches} (= {dequants} dequantized "
+          f"segments x {n_leaves} leaves), extend {ek.KERNEL.launches}, decode "
+          f"{dk.KERNEL.launches}")
+    check(launches == dequants * n_leaves, "quant_kv launched off the reuse path")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the analytics engine
 # ---------------------------------------------------------------------------
 
 ANALYTICS_FAMILIES = ("linreg", "gaussian_nb", "logreg")
@@ -697,6 +1037,45 @@ def analytics_profile(eng, family, params, rng, n, P, dev, queries: int = 10) ->
               f"({busy / wall:.1%}); top device ms per query: {top or 'none seen'}")
 
 
+def store_reload(eng, table, family, params, rng, n, P, queries: int = 10) -> None:
+    """Save the family's model store, load it back, and answer ``queries``
+    more queries over each (materializing nothing): the reloaded store must
+    give the live store's plans and bitwise statistics."""
+    from repro_torch.core.descriptors import Range
+    from repro_torch.core.engine import IncrementalAnalyticsEngine
+    from repro_torch.core.store import ModelStore
+
+    root = Path(tempfile.mkdtemp(prefix="repro_torch_smoke_"))
+    try:
+        t0 = time.perf_counter()
+        eng.store.save(root / family)
+        save_s = time.perf_counter() - t0
+        snap_bytes = sum(f.stat().st_size for f in (root / family).iterdir())
+        t0 = time.perf_counter()
+        loaded = ModelStore.load(root / family)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(sorted(loaded._models) == sorted(eng.store._models),
+          f"{family}: the reloaded model store lost models")
+    live = IncrementalAnalyticsEngine(table, store=eng.store, materialize="never")
+    back = IncrementalAnalyticsEngine(table, store=loaded, materialize="never")
+    same = True
+    for _ in range(queries):
+        size = min(max(int(rng.normal(P.query_mean, P.query_std)), 1000), n - 1)
+        lo = int(rng.integers(0, n - size))
+        a = live.query(family, Range(lo, lo + size), **params)
+        b = back.query(family, Range(lo, lo + size), **params)
+        same &= plan_key(a.plan) == plan_key(b.plan) and all(
+            np.array_equal(np.asarray(getattr(a.stats, f.name)),
+                           np.asarray(getattr(b.stats, f.name)))
+            for f in dataclasses.fields(a.stats))
+    print(f"    store snapshot: {len(loaded)} models, {snap_bytes} B, save {save_s:.3f} s, "
+          f"load {load_s:.3f} s; {queries} queries over the reloaded store: identical "
+          f"plans and bitwise statistics: {same}")
+    check(same, f"{family}: the reloaded model store answers differently")
+
+
 def analytics_main_path(dev) -> dict:
     """The paper's workload through ``IncrementalAnalyticsEngine`` on the
     card, against ``baseline`` on the same queries."""
@@ -767,8 +1146,9 @@ def analytics_main_path(dev) -> dict:
         print("    engine time split (ExecTimings, s): "
               + ", ".join(f"{k[:-2]} {v:.4f}" for k, v in split.items()))
         analytics_profile(eng, family, params, rng, n, P, dev)
+        store_reload(eng, tables[family], family, params, rng, n, P)
         print(f"    launches (warm-up, {n_queries} queries and baselines, 10 profiled "
-              f"queries and baselines): "
+              f"queries and baselines, 2 x 10 reload-check queries): "
               f"{ {name: k.launches - before[name] for name, k in kernels.items()} }")
         check(reused > 0, f"{family}: no query reused a materialized model")
         for model, base_model in samples:
@@ -823,8 +1203,8 @@ def main() -> int:
     timer = Timer(dev)
     print("[2] kernels vs plain versions on the card")
     rows = [extend_phase(dev, timer), decode_phase(dev, timer),
-            linreg_stats_phase(dev, timer), nb_stats_phase(dev, timer),
-            logreg_sgd_phase(dev, timer)]
+            quant_kv_phase(dev, timer), linreg_stats_phase(dev, timer),
+            nb_stats_phase(dev, timer), logreg_sgd_phase(dev, timer)]
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} [{r['shape']}]: kernel {r['ms']:.4f} ms, bound "
@@ -836,15 +1216,17 @@ def main() -> int:
     reduced_parity(dev)
 
     print(f"[4] full-width main path ({FULL_LAYERS} layers, bf16)")
-    counts, eng = main_path(dev)
+    counts, eng, ref = main_path(dev)
     print("[5] where the time goes (torch.profiler, full width)")
     where_time_goes(eng, dev)
-    del eng
+    print(f"[6] residency at full width ({FULL_LAYERS} layers, bf16 model)")
+    counts["quant_kv"] = residency_phase(eng, ref, dev)
+    del eng, ref
     torch.cuda.empty_cache()
 
-    print("[6] analytics engine (200K x 10): card vs CPU")
+    print("[7] analytics engine (200K x 10): card vs CPU")
     analytics_parity(dev)
-    print("[7] analytics main path: the paper's workload on the card")
+    print("[8] analytics main path: the paper's workload on the card")
     counts.update(analytics_main_path(dev))
 
     sources = {
@@ -852,6 +1234,8 @@ def main() -> int:
                              "src/repro/kernels/extend_attention/kernel.py:108"),
         "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:103"),
+        "quant_kv": ("src/repro_torch/kernels/quant_kv/csrc/quant_kv.cu",
+                     "src/repro/kernels/quant_kv/kernel.py:50"),
         "linreg_stats": ("src/repro_torch/kernels/linreg_stats/csrc/linreg_stats.cu",
                          "src/repro/kernels/linreg_stats/kernel.py:43"),
         "nb_stats": ("src/repro_torch/kernels/nb_stats/csrc/nb_stats.cu",

@@ -10,8 +10,9 @@ reports the Fig 2/5-style summary vs the no-reuse baseline.
 runs on the CUDA device (the base tables live there and every statistics
 pass goes through a Hopper kernel); ``--device cpu`` runs the same path on
 the CPU with the kernels' plain versions.  The flags are those of
-``python -m repro.launch.analytics``; ``--store-dir`` (persistence) raises
-``NotImplementedError`` naming the ROADMAP.md item.
+``python -m repro.launch.analytics``; ``--store-dir`` saves each family's
+model store to ``{store_dir}/{family}`` (the snapshot format both packages
+load).
 """
 from __future__ import annotations
 
@@ -56,10 +57,6 @@ def synchronize(device: torch.device) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.store_dir:
-        raise NotImplementedError(
-            "--store-dir is not ported to repro_torch yet: ROADMAP.md §1 "
-            "item 6 (persistence)")
     device = resolve_device(args.device)
 
     from repro_torch.core.descriptors import Range, coalesce
@@ -114,6 +111,8 @@ def main(argv=None) -> None:
               f"speedup {t_base / t_ours:.2f}x  "
               f"reused {reused}/{args.queries} queries  "
               f"store {eng.store.nbytes()/1e6:.2f} MB  on {device}")
+        if args.store_dir:
+            eng.store.save(f"{args.store_dir}/{family}")
 
 
 if __name__ == "__main__":

@@ -7,7 +7,21 @@ single session over one document.
 runs on the CUDA device; ``--device cpu`` runs the same path on the CPU
 (the kernels' plain versions).  The flags are those of
 ``python -m repro.launch.serve``; the ones whose features the port does
-not have yet raise ``NotImplementedError`` naming the ROADMAP.md item.
+not have yet (multi-session, edits, sharding) raise
+``NotImplementedError`` naming the ROADMAP.md item.
+
+Residency: ``--store-dir`` reloads a snapshot at start (when one exists),
+re-snapshots every ``--snapshot-every`` requests on the background writer
+(``--sync-saves`` to block instead) and always takes a final snapshot,
+compacted with ``--compact-final``; ``--host-budget`` / ``--spill-dir``
+open host and disk tiers below ``--byte-budget``; ``--segment-precision
+int8`` stores every segment as blockwise int8, dequantized on reuse by
+the ``quant_kv`` kernel:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-67b \
+      --reduced --device cpu --doc-len 512 --requests 3 --byte-budget 200000 \
+      --host-budget 200000 --spill-dir /tmp/kvspill --segment-precision int8 \
+      --store-dir /tmp/kvstore
 """
 from __future__ import annotations
 
@@ -24,13 +38,6 @@ _NOT_PORTED = (
     ("--edit-every", "edit_every", 0, "item 4 (multi-session edit traffic)"),
     ("--edit-kind", "edit_kind", "random", "item 4 (multi-session edit traffic)"),
     ("--edit-span", "edit_span", 16, "item 4 (multi-session edit traffic)"),
-    ("--store-dir", "store_dir", "", "item 6 (persistence)"),
-    ("--snapshot-every", "snapshot_every", 0, "item 6 (persistence)"),
-    ("--compact-final", "compact_final", False, "item 6 (persistence)"),
-    ("--host-budget", "host_budget", 0, "item 6 (residency tiers)"),
-    ("--spill-dir", "spill_dir", "", "item 6 (residency tiers)"),
-    ("--tier-policy", "tier_policy", None, "item 6 (residency tiers)"),
-    ("--segment-precision", "segment_precision", None, "item 6 (int8 residency)"),
     ("--shards", "shards", 1, "item 7 (sharding)"),
     ("--shard-bw", "shard_bw", 2e9, "item 7 (sharding)"),
     ("--shard-rtt", "shard_rtt", 1e-3, "item 7 (sharding)"),
@@ -54,26 +61,132 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def _tier_kwargs(args) -> dict:
+    """Residency-tier and precision settings from the command line (empty:
+    a device-only store at the resolved precision)."""
+    kw = {}
+    if args.host_budget > 0:
+        kw["host_budget"] = args.host_budget
+    if args.spill_dir:
+        kw["spill_dir"] = args.spill_dir
+    if args.tier_policy:
+        kw["tier_policy"] = args.tier_policy
+    if args.segment_precision:
+        kw["precision"] = args.segment_precision
+    return kw
+
+
+def _load_store(args, budget, tiers, device):
+    """The segment store of ``--store-dir``'s snapshot (either package's),
+    or ``None`` when there is none yet.  Documents are content-keyed, so a
+    snapshot of other documents yields no hits; a snapshot is valid only
+    for the (arch, seed) it was taken under."""
+    from repro_torch.serve.kv_cache import SegmentStore
+
+    if not args.store_dir:
+        return None
+    try:
+        store = SegmentStore.load(args.store_dir, byte_budget=budget,
+                                  policy=args.eviction_policy, device=device,
+                                  **tiers)
+    except FileNotFoundError:
+        return None       # no snapshot yet: this run populates it
+    print(f"warm start: reloaded {len(store)} segments "
+          f"({store.nbytes()/1e6:.1f} MB, {len(store.doc_ids())} documents) "
+          f"from {args.store_dir}")
+    return store
+
+
+def _make_store(args, budget, seq_bucket, device):
+    """Load or create the store when the residency flags ask for one;
+    ``None`` lets the engine build its own device-only store."""
+    from repro_torch.core.cost import serve_cost_model
+    from repro_torch.serve.kv_cache import SegmentStore
+
+    tiers = _tier_kwargs(args)
+    store = _load_store(args, budget, tiers, device)
+    if store is not None:
+        return store
+    if not tiers:
+        return None
+    return SegmentStore(byte_budget=budget, cost_model=serve_cost_model(),
+                        policy=args.eviction_policy, seq_bucket=seq_bucket,
+                        device=device, **tiers)
+
+
+def _snapshot(store, args, *, final: bool = False) -> None:
+    if not args.store_dir:
+        return
+    if not final:
+        # periodic snapshots ride the background writer (coalesced when one
+        # is in flight) unless --sync-saves
+        if args.background_saves:
+            store.save_async(args.store_dir)
+        else:
+            store.save(args.store_dir)
+        return
+    # the final snapshot is synchronous (save() drains queued writes first)
+    store.save(args.store_dir)
+    if args.compact_final:
+        res = store.compact_snapshot()
+        if res is not None:
+            print(f"compacted snapshot: kept {res['kept']}, "
+                  f"dropped {res['dropped']}")
+    print(f"snapshot: {len(store)} segments ({store.nbytes()/1e6:.1f} MB) "
+          f"-> {args.store_dir}")
+
+
+def _print_tier_report(store, args) -> None:
+    tiers = store.tier_bytes()
+    print(f"  tiers ({store.tier_policy} policy): "
+          f"device {tiers['device']/1e6:.1f} MB, "
+          f"host {tiers['host']/1e6:.1f} MB, "
+          f"disk {tiers['disk']/1e6:.1f} MB")
+    print(f"  tier traffic: promotions {sum(store.promotions.values())} "
+          f"(host {store.promotions['host']}, disk {store.promotions['disk']}), "
+          f"demotions {sum(store.demotions.values())} "
+          f"(host {store.demotions['host']}, disk {store.demotions['disk']}), "
+          f"prefetches {store.prefetches}, spill writes {store.spill_writes}")
+    print(f"  precision ({store.precision} policy): "
+          f"{store.quantized_segments()} int8 segments resident, "
+          f"{store.quantized} quantized, "
+          f"{store.quant_bytes_saved/1e6:.1f} MB saved")
+    if args.store_dir:
+        w = store.writer
+        print(f"  background saves: {store.bg_saves} completed, "
+              f"{store.bg_save_drops} coalesced, "
+              f"queue {w.depth() if w is not None else 0}, "
+              f"stall {store.save_stall_s*1e3:.1f} ms, "
+              f"errors {len(store.save_errors)}")
+
+
 def run_single(args, cfg, model, params, rng, device) -> None:
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.session import doc_key
 
     doc = rng.integers(0, cfg.vocab_size, args.doc_len).astype(np.int32)
     budget = args.byte_budget if args.byte_budget > 0 else None
+    store = _make_store(args, budget, 64, device)   # ServeEngine's seq_bucket
+    store_kw = (dict(store=store) if store is not None
+                else dict(byte_budget=budget,
+                          eviction_policy=args.eviction_policy))
     eng = ServeEngine(model, params, doc, chunk_tokens=args.chunk_tokens,
-                      doc_id=doc_key(doc), byte_budget=budget,
-                      eviction_policy=args.eviction_policy, device=device)
+                      doc_id=doc_key(doc), device=device, **store_kw)
     for i in range(args.requests):
         L = int(rng.integers(args.doc_len // 4, args.doc_len))
         toks, plan = eng.generate(L, args.new_tokens, greedy=False, seed=i)
         print(f"req {i}: prefix {L:6d}  reused-models {len(plan.models_used):3d}  "
               f"tokens {toks[:8]}…")
+        if args.snapshot_every and (i + 1) % args.snapshot_every == 0:
+            _snapshot(eng.store, args)
+    _snapshot(eng.store, args, final=True)
     s = eng.stats
     print(f"\n{s.requests} requests: reuse {s.reuse_frac:.1%} "
           f"({s.tokens_reused} reused / {s.tokens_computed} computed), "
           f"planner {s.planner_s*1e3:.1f} ms total, prefill {s.prefill_s:.2f}s, "
           f"decode {s.decode_s:.2f}s, store {len(eng.store)} segments "
           f"({eng.store.nbytes()/1e6:.1f} MB)")
+    _print_tier_report(eng.store, args)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -10,7 +10,9 @@ in place of chunk models).
 :class:`ServeEngine` is one session over one document; it drives a
 :class:`PrefixCacheBuilder`, which owns the model entry points.  The
 batched multi-session front end (``SessionManager``) and the deferred
-(async) build path wait for ROADMAP.md §1 item 4.
+(async) build path wait for ROADMAP.md §1 item 4.  Reused int8 segments
+come back to model precision through the ``quant_kv`` kernel
+(:meth:`PrefixCacheBuilder._segment_caches`).
 """
 from __future__ import annotations
 
@@ -94,6 +96,24 @@ class PrefixCacheBuilder:
         self.lowerings = {"prefill": 0, "extend": 0, "extend_many": 0,
                           "insert": 0}
         self._shapes: dict[str, set] = {k: set() for k in self.lowerings}
+        #: segments dequantized on the reuse path (int8 residents whose
+        #: payload was reconstructed before it entered the cache)
+        self.dequants = 0
+
+    def _segment_caches(self, seg):
+        """A reuse segment's caches at model precision.
+
+        int8 residents reconstruct through the ``quant_kv`` kernel (its
+        plain version on the CPU) before they are inserted: ``insert_cache``
+        casts the segment to the destination dtype, so raw int8 codes would
+        enter as magnitudes.  The stored copy stays int8.
+        """
+        if seg.precision != "int8" or seg.quant is None:
+            return seg.caches
+        from repro_torch.core.quant import dequantize_tree
+
+        self.dequants += 1
+        return dequantize_tree(seg.caches, seg.quant)
 
     def _dispatch(self, key: str, shape: tuple) -> None:
         if shape not in self._shapes[key]:
@@ -159,16 +179,17 @@ class PrefixCacheBuilder:
             for st in steps:
                 if st.model_id is not None:
                     seg = self.store.get(st.model_id, requester=requester)
+                    seg_caches = self._segment_caches(seg)
                     if caches is None:
                         # plan anchor at 0: adopt a copy of the segment,
                         # grown to the request capacity (later steps write
                         # into it in place; the stored copy stays intact)
-                        caches = pad_cache_to(seg.caches, cap)
+                        caches = pad_cache_to(seg_caches, cap)
                         if caches is seg.caches:
                             caches = clone_cache(caches)
                     else:
                         self._dispatch("insert", (cache_len(caches), seg.capacity))
-                        caches = insert_cache(caches, seg.caches, st.rng.lo)
+                        caches = insert_cache(caches, seg_caches, st.rng.lo)
                     stats.tokens_reused += st.rng.size
                 else:
                     caches = self._fill_gap(doc, st.rng, caches, cap,

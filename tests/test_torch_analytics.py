@@ -295,10 +295,12 @@ def test_model_store_budget_and_unported_persistence(tmp_path):
     assert kept.model_id not in store.index("linreg") and ids
     with pytest.raises(KeyError):
         store.put("svm", Range(0, 1), st_)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        store.save(tmp_path / "s")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ModelStore.load(tmp_path / "s")
+    # persistence (ported): the snapshot reloads under the same budget
+    store.save(tmp_path / "s")
+    loaded = ModelStore.load(tmp_path / "s", byte_budget=store.byte_budget)
+    assert sorted(loaded.model_bytes("linreg")) == sorted(store.model_bytes("linreg"))
+    for sm in store.models():
+        np.testing.assert_array_equal(loaded.get(sm.model_id).stats.A, sm.stats.A)
 
 
 def test_backends_deliver_kernel_ready_tensors(tmp_path):
@@ -333,11 +335,33 @@ def test_cli_runs_on_cpu(capsys):
     assert out.count("on cpu") == 3
 
 
-def test_cli_store_dir_names_the_roadmap():
+def test_cli_store_dir_names_the_roadmap(tmp_path, capsys, monkeypatch):
+    """``--store-dir`` (ported) saves each family's store to
+    ``{store_dir}/{family}``; each reloads with the reported model count,
+    in the port and in ``repro``, as ``python -m repro.launch.analytics``
+    writes them."""
+    from repro.core.store import ModelStore as JaxModelStore
+    from repro.launch import analytics as jax_cli
     from repro_torch.launch import analytics as cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--device", "cpu", "--store-dir", "x"])
+    flags = ["--points", "20000", "--queries", "3", "--model-size", "2000",
+             "--query-size", "2000"]
+    cli.main(["--device", "cpu", "--store-dir", str(tmp_path / "t"), *flags])
+    out = capsys.readouterr().out
+    monkeypatch.setattr("sys.argv", ["analytics", "--store-dir", str(tmp_path / "j"),
+                                     *flags])
+    jax_cli.main()
+    jout = capsys.readouterr().out
+    for family in ("linreg", "gaussian_nb", "logreg"):
+        ours = ModelStore.load(tmp_path / "t" / family)
+        ref = JaxModelStore.load(tmp_path / "j" / family)
+        assert len(ours) > 0 and sorted(ours._models) == sorted(ref._models)
+        assert ModelStore.load(tmp_path / "j" / family).nbytes() == ours.nbytes()
+        assert len(JaxModelStore.load(tmp_path / "t" / family)) == len(ours)
+        reused = [line.split("reused ")[1].split(" ")[0]
+                  for text in (out, jout) for line in text.splitlines()
+                  if line.startswith(family + " ")]
+        assert reused[0] == reused[1], (family, reused)
 
 
 def test_cli_without_a_card_needs_device_cpu():

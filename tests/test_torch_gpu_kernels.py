@@ -9,7 +9,9 @@ the card with
 
 Tolerances: attention fp32 rtol 1e-4 / atol 1e-5 (reduction order); bf16
 inputs against the fp32 plain version on the same bf16 values at 2e-2, for
-the bf16 rounding of the output.  The analytics kernels keep
+the bf16 rounding of the output.  The int8 dequant kernel must equal its
+plain version bitwise (one fp32 multiply, one rounding).  The analytics
+kernels keep
 ``tests/test_kernels.py``'s tolerances (fp32 sums in another order), and two
 launches on the same data must agree bitwise (no atomics, fixed order).
 """
@@ -31,6 +33,10 @@ from repro_torch.kernels.logreg_sgd import ops as logreg_ops  # noqa: E402
 from repro_torch.kernels.nb_stats import kernel as nb_kernel  # noqa: E402
 from repro_torch.kernels.nb_stats import ops as nb_ops  # noqa: E402
 from repro_torch.kernels.nb_stats.ref import nb_stats_ref  # noqa: E402
+from repro_torch.kernels.quant_kv import kernel as quant_kernel  # noqa: E402
+from repro_torch.kernels.quant_kv import ops as quant_ops  # noqa: E402
+from repro_torch.kernels.quant_kv.ref import (dequant_blocks_ref,  # noqa: E402
+                                              dequantize_leaf_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -221,3 +227,48 @@ def test_engine_on_the_card_plans_like_the_cpu(hopper):
     assert p1 == p2 and r1 and r2
     np.testing.assert_allclose(s1.S, s2.S, rtol=1e-4, atol=1e-2)
     np.testing.assert_array_equal(s1.counts, s2.counts)
+
+
+# -- int8 KV dequantization --------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,block", [
+    ((2, 1, 24, 3, 16), 8), ((2, 1, 20, 3, 24), 8), ((24, 1, 128, 8, 128), 64),
+    ((1, 2, 33, 2, 128), 16), ((3, 1, 17, 24), 4), ((2, 1, 40, 16), 16),
+    ((2, 1, 40, 2, 3, 8), 16)])
+def test_quant_kv_kernel_matches_plain_bitwise(hopper, shape, block, dtype):
+    from repro_torch.core.quant import quantize_leaf
+
+    x = _randn(shape, torch.float32, hopper, 32) * 3
+    x[:, :, :block] = 0                            # an all-zero block
+    q, s = quantize_leaf(x, block)
+    before = quant_kernel.KERNEL.launches
+    out = quant_ops.dequantize_leaf(q, s, block=block, dtype=dtype)
+    torch.cuda.synchronize()
+    assert quant_kernel.KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = dequantize_leaf_ref(q, s, block=block, dtype=dtype)
+    assert torch.equal(out, want)
+    cpu = quant_ops.dequantize_leaf(q.cpu(), s.cpu(), block=block, dtype=dtype)
+    assert torch.equal(out.cpu(), cpu)
+
+
+def test_quant_kv_blocks_layout_and_bad_inputs(hopper):
+    g = torch.Generator(device=hopper).manual_seed(33)
+    q = torch.randint(-127, 128, (6, 8, 16), generator=g, device=hopper).to(torch.int8)
+    s = torch.rand((6,), generator=g, device=hopper) + 1e-3
+    out = quant_ops.dequantize_blocks(q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dequant_blocks_ref(q, s))
+    with pytest.raises(TypeError):
+        quant_ops.dequantize_leaf(q.reshape(6, 1, 8, 16).float(), s.reshape(6, 1, 1),
+                                  block=8, dtype=torch.float32)
+    with pytest.raises(TypeError, match="output dtype"):
+        quant_ops.dequantize_leaf(q.reshape(6, 1, 8, 16), s.reshape(6, 1, 1), block=8,
+                                  dtype=torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_ops.dequantize_leaf(q.reshape(6, 1, 8, 16)[:, :, ::2], s.reshape(6, 1, 1),
+                                  block=8, dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        quant_ops.dequantize_leaf(q.reshape(-1)[1:97].reshape(2, 1, 3, 16),
+                                  s[:2].reshape(2, 1, 1), block=8, dtype=torch.float32)

@@ -6,6 +6,12 @@ greedy requests whose prefixes reuse one another.  Required: the same plans
 (step ranges, reuse or gap per step), the same segment ids in the store
 and identical greedy tokens.  Greedy only: ``jax.random`` and
 ``torch.Generator`` draw different numbers.
+
+With an int8 segment store (and again with host and disk tiers below a
+device budget) the same holds, plus equal dequantization and tier counters;
+the last prefix position's logits agree within ``INT8_LOGIT_ATOL``: the
+dequantized caches are bitwise equal across the packages (see
+``tests/test_torch_quant.py``), so what remains is fp32 reduction order.
 """
 import pytest
 
@@ -29,6 +35,7 @@ from repro_torch.serve.kv_cache import SegmentStore, slice_cache  # noqa: E402
 from repro_torch.serve.session import doc_key  # noqa: E402
 
 REQUESTS = [(200, 4), (256, 4), (130, 4)]
+INT8_LOGIT_ATOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -152,8 +159,8 @@ def test_cli_single_session_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--sessions", "2"], ["--shards", "2"],
-                                  ["--store-dir", "x"], ["--edit-every", "1"],
-                                  ["--host-budget", "1"]])
+                                  ["--hedge-deadline", "1"], ["--edit-every", "1"],
+                                  ["--edit-kind", "insert"]])
 def test_cli_unported_flags_name_the_roadmap(flag):
     from repro_torch.launch import serve as cli
 
@@ -169,3 +176,119 @@ def test_cli_without_a_card_needs_device_cpu():
     with pytest.raises(SystemExit) as exc:
         cli.main(["--arch", "deepseek-67b", "--reduced"])
     assert "--device cpu" in str(exc.value.code)
+
+
+@pytest.mark.parametrize("tiered", [False, True], ids=["int8", "int8_tiered"])
+def test_int8_store_serving_matches_reference(setup, tmp_path, tiered):
+    jm, jparams, tm, params, docs = setup
+    doc = docs[0]
+    kw = dict(precision="int8", seq_bucket=64)
+    jkw, tkw = dict(kw), dict(kw)
+    if tiered:
+        with torch.no_grad():
+            _, caches = tm.prefill(params, {"tokens": torch.from_numpy(doc[None, :64])})
+        one = SegmentStore(device="cpu", **kw)
+        one.put(Range(0, 64), caches)
+        seg = one.nbytes()
+        tiers = dict(byte_budget=2 * seg + 1, host_budget=seg + 1)
+        jkw.update(tiers, spill_dir=tmp_path / "j")
+        tkw.update(tiers, spill_dir=tmp_path / "t")
+    jeng = JaxEngine(jm, jparams, doc, chunk_tokens=64, store=JaxStore(**jkw))
+    teng = ServeEngine(tm, params, doc, chunk_tokens=64, store=SegmentStore(
+        device="cpu", **tkw), device="cpu")
+    for prefix, n_new in REQUESTS + [(256, 4)]:
+        jt, jp = jeng.generate(prefix, n_new, greedy=True)
+        tt, tp = teng.generate(prefix, n_new, greedy=True)
+        assert _plan_steps(tp) == _plan_steps(jp)
+        assert tp.models_used == jp.models_used
+        assert tt == jt, (prefix, tt, jt)
+    js, ts = jeng.store, teng.store
+    js.flush_saves()
+    ts.flush_saves()
+    assert sorted(ts._segs) == sorted(js._segs)
+    assert teng.builder.dequants == jeng.builder.dequants > 0
+    assert ts.quantized == js.quantized == len(ts) == ts.quantized_segments()
+    for name in ("demotions", "promotions", "evictions", "spill_writes"):
+        assert getattr(ts, name) == getattr(js, name), name
+    assert ts.tier_bytes() == js.tier_bytes()
+    if tiered:
+        assert ts.demotions["host"] > 0 and ts.demotions["disk"] > 0
+        assert ts.promotions["host"] + ts.promotions["disk"] > 0
+    jl, _, jplan = jeng.builder.prefix_with_logits(doc, 200, doc_id=jeng.doc_id,
+                                                   capacity=204)
+    tl, _, tplan = teng.builder.prefix_with_logits(doc, 200, doc_id=teng.doc_id,
+                                                   capacity=204)
+    assert _plan_steps(tplan) == _plan_steps(jplan) and tplan.models_used
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=INT8_LOGIT_ATOL)
+
+
+def _report(out: str) -> list:
+    """The lines of the serve CLI's report that carry reuse and tier counts
+    (sampled tokens, times and paths cut off)."""
+    keep = []
+    for line in out.splitlines():
+        if line.startswith("req "):
+            keep.append(line.split("tokens")[0])
+        elif " requests: reuse " in line:
+            keep.append(line.split(", planner")[0])
+        elif line.startswith(("  tiers", "  tier traffic", "  precision")):
+            keep.append(line)
+        elif line.startswith(("warm start", "snapshot:")):
+            keep.append(line.split(" from ")[0].split(" -> ")[0])
+    return keep
+
+
+def test_cli_residency_flags_match_reference(tmp_path, capsys, monkeypatch):
+    """The residency flags on the CPU, run twice (the second run reloads the
+    first run's snapshot): the port prints the reuse and tier counts that
+    ``python -m repro.launch.serve`` prints with the same flags."""
+    from repro.launch import serve as jax_cli
+    from repro_torch.launch import serve as cli
+
+    def flags(root):
+        return ["--arch", "deepseek-67b", "--reduced", "--doc-len", "256",
+                "--requests", "3", "--new-tokens", "2", "--chunk-tokens", "64",
+                "--byte-budget", "20000", "--host-budget", "12000",
+                "--spill-dir", str(root / "spill"), "--segment-precision", "int8",
+                "--store-dir", str(root / "store"), "--snapshot-every", "1"]
+
+    outs = {}
+    for run in (1, 2):
+        cli.main(["--device", "cpu", *flags(tmp_path / "t")])
+        outs["port", run] = capsys.readouterr().out
+        monkeypatch.setattr("sys.argv", ["serve", *flags(tmp_path / "j")])
+        jax_cli.main()
+        outs["ref", run] = capsys.readouterr().out
+    for run in (1, 2):
+        port, ref = _report(outs["port", run]), _report(outs["ref", run])
+        assert port == ref, (run, port, ref)
+    assert any(line.startswith("warm start: reloaded") for line in _report(outs["port", 2]))
+    traffic = [line for line in _report(outs["port", 2]) if "tier traffic" in line]
+    assert traffic and "disk 0)" not in traffic[0]      # both tiers, both ways
+
+
+def test_lossless_tiers_keep_streams_bit_identical(setup, tmp_path):
+    """Model-precision segments through host and disk tiers are bitwise
+    copies: the same greedy streams and logits as a device-only store."""
+    _, _, tm, params, docs = setup
+    doc = docs[1]
+    plain = ServeEngine(tm, params, doc, chunk_tokens=64, device="cpu")
+    with torch.no_grad():
+        _, caches = tm.prefill(params, {"tokens": torch.from_numpy(doc[None, :64])})
+    one = SegmentStore(device="cpu", precision="fp32")
+    one.put(Range(0, 64), caches)
+    seg = one.nbytes()
+    tiered = ServeEngine(tm, params, doc, chunk_tokens=64, device="cpu", store=SegmentStore(
+        device="cpu", precision="fp32", byte_budget=2 * seg + 1, host_budget=seg + 1,
+        spill_dir=tmp_path / "spill"))
+    for prefix, n_new in REQUESTS + [(256, 4)]:
+        pt, pp = plain.generate(prefix, n_new)
+        tt, tp = tiered.generate(prefix, n_new)
+        assert tt == pt and _plan_steps(tp) == _plan_steps(pp)
+    st = tiered.store
+    assert min(st.demotions.values()) > 0 and min(st.promotions.values()) > 0
+    assert st.quantized == 0 and st.evictions == 0
+    pl, _, _ = plain.builder.prefix_with_logits(doc, 200, doc_id=plain.doc_id, capacity=204)
+    tl, _, _ = tiered.builder.prefix_with_logits(doc, 200, doc_id=tiered.doc_id, capacity=204)
+    assert torch.equal(pl, tl)
