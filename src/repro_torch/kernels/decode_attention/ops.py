@@ -3,9 +3,14 @@
 The entry point ``models/attention.py::decode_attention`` routes through.
 The TPU layout (``repro``'s ``ops.py``) flattens (batch, KV head) pairs
 onto the kernel's stream grid and stacks each KV head's G query heads on
-the stream's q rows; the CUDA kernel does the same by index arithmetic on
-the model's own tensors (one block per (row, KV head), the G heads as its
-query rows), so no transposed copy of the cache is made per step.
+the stream's q rows; the CUDA kernel reads the model's own tensors by index
+arithmetic instead (no transposed copy of the cache per step) and cuts each
+row's prefix into fixed splits of ``kernel.SPLIT`` positions: one
+block per (row, KV head, split) writes an fp32 partial, and a combine
+kernel merges a row's live splits in ascending order.  The splits are
+fixed by position alone, so the output stays bitwise the same at any
+padded capacity and in any batch (:func:`.ref.decode_attention_split` is
+the same algorithm in plain PyTorch).
 
 Routing: a CUDA tensor launches the kernel, a CPU tensor runs the plain
 blocked version (:func:`.ref.decode_attention_blocked`); see

@@ -9,6 +9,9 @@ path): an online softmax over **fixed-size** KV blocks whose trip count is
 ``max(pos) // block + 1``.  The block size is not a function of the padded
 capacity, and masked tails contribute exact zeros, so a row's output is
 bit-invariant to how much padding its cache carries.
+:func:`decode_attention_split` is the plain form of the CUDA kernel's
+split-KV algorithm (per-split partials, then a combine in ascending split
+order); the tests and the smoke run hold the kernel against it.
 :func:`decode_attention_ref` is the dense oracle.
 """
 from __future__ import annotations
@@ -70,3 +73,49 @@ def decode_attention_ref(q, k, v, pos):
                      torch.tensor(NEG_INF, device=q.device))
     prob = torch.softmax(sc, dim=-1)
     return torch.einsum("bkgt,btkd->bkgd", prob, v.float())
+
+
+def decode_attention_split(q, k, v, pos, *, split: int):
+    """The CUDA kernel's algorithm in plain PyTorch: split-KV, then combine.
+
+    q (B, KV, G, hd); k/v (B, T, KV, hd[_v]); pos (B,) int →
+    (B, KV, G, hd_v) float32.  A split is ``split`` consecutive positions;
+    row b has live splits ``0 … pos[b] // split``.  Each live split gives a
+    partial from its own positions alone: ``m`` (max score), ``l``
+    (Σ exp(score − m)) and the unnormalised ``acc`` (Σ exp(score − m)·v).
+    The combine takes ``M = max_s m_s`` and sums ``l_s·exp(m_s − M)`` and
+    ``acc_s·exp(m_s − M)`` over the live splits in ascending order.  Rows
+    are computed one by one on fixed-size slices, so a row's output depends
+    neither on T nor on the rest of the batch.
+    """
+    b, kv, g, hd = q.shape
+    hd_v = v.shape[3]
+    qf = q.float() * (hd ** -0.5)
+    out = torch.empty((b, kv, g, hd_v), dtype=torch.float32, device=q.device)
+    offs = torch.arange(split, device=q.device)
+    for row, p in enumerate(pos.tolist()):
+        n_live = p // split + 1
+        kr = pad_axis(k[row, :n_live * split].float(), 0, n_live * split)
+        vr = pad_axis(v[row, :n_live * split].float(), 0, n_live * split)
+        ms, ls, accs = [], [], []
+        for s in range(n_live):
+            valid = (s * split + offs <= p)                    # (split,)
+            kc = kr[s * split:(s + 1) * split].contiguous()    # (split, KV, hd)
+            vc = torch.where(valid[:, None, None],
+                             vr[s * split:(s + 1) * split], 0.0).contiguous()
+            sc = torch.einsum("kgd,tkd->kgt", qf[row], kc)
+            sc = torch.where(valid, sc, torch.tensor(NEG_INF, device=q.device))
+            m = sc.amax(-1)                                    # (KV, G)
+            pr = torch.exp(sc - m[..., None])
+            ms.append(m)
+            ls.append(pr.sum(-1))
+            accs.append(torch.einsum("kgt,tkd->kgd", pr, vc))
+        big_m = torch.stack(ms).amax(0)
+        l_tot = torch.zeros_like(big_m)
+        acc = torch.zeros((kv, g, hd_v), dtype=torch.float32, device=q.device)
+        for m, l, a in zip(ms, ls, accs):                      # ascending s
+            w = torch.exp(m - big_m)
+            l_tot = l_tot + l * w
+            acc = acc + a * w[..., None]
+        out[row] = acc / torch.clamp(l_tot, min=1e-30)[..., None]
+    return out

@@ -21,7 +21,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
-from repro_torch.kernels.decode_attention.ref import decode_attention_blocked  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
+    decode_attention_blocked, decode_attention_split)
 from repro_torch.kernels.extend_attention import kernel as extend_kernel  # noqa: E402
 from repro_torch.kernels.extend_attention import ops as extend_ops  # noqa: E402
 from repro_torch.kernels.extend_attention.ref import extend_attention_ref  # noqa: E402
@@ -41,6 +42,10 @@ from repro_torch.kernels.quant_kv.ref import (dequant_blocks_ref,  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+#: bf16 decode kernel against the plain form of its own algorithm: a few
+#: times the 5.6e-4 an H100 gives at chip_smoke.py's decode shape (P and the
+#: output rounded to bf16), well below outputs of |out| ~ 0.02-1
+DECODE_BF16_SPLIT_TOL = (1e-2, 2e-3)
 
 
 @pytest.fixture
@@ -93,19 +98,82 @@ def test_decode_kernel_matches_plain(hopper, dtype, hd, kv, g):
                                rtol=rtol, atol=atol)
 
 
-def test_decode_kernel_bit_invariant_to_capacity(hopper):
+@pytest.mark.parametrize("small,big,pos_list", [
+    (256, 2048, [0, 17, 128, 255]),           # one split
+    (2048, 8192, [0, 300, 1000, 2047]),       # several splits: the combine
+])
+def test_decode_kernel_bit_invariant_to_capacity(hopper, small, big, pos_list):
     b, kv, g, hd = 4, 8, 8, 128
     q = _randn((b, 1, kv * g, hd), torch.bfloat16, hopper, 7)
-    k = _randn((b, 256, kv, hd), torch.bfloat16, hopper, 8)
-    v = _randn((b, 256, kv, hd), torch.bfloat16, hopper, 9)
-    kb = _randn((b, 2048, kv, hd), torch.bfloat16, hopper, 10) * 100
-    vb = _randn((b, 2048, kv, hd), torch.bfloat16, hopper, 11) * 100
-    kb[:, :256], vb[:, :256] = k, v
-    pos = torch.tensor([0, 17, 128, 255], dtype=torch.int32, device=hopper)
-    small = decode_ops.decode_attention(q, k, v, pos=pos)
-    big = decode_ops.decode_attention(q, kb, vb, pos=pos)
+    k = _randn((b, small, kv, hd), torch.bfloat16, hopper, 8)
+    v = _randn((b, small, kv, hd), torch.bfloat16, hopper, 9)
+    kb = _randn((b, big, kv, hd), torch.bfloat16, hopper, 10) * 100
+    vb = _randn((b, big, kv, hd), torch.bfloat16, hopper, 11) * 100
+    kb[:, :small], vb[:, :small] = k, v
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=hopper)
+    small_out = decode_ops.decode_attention(q, k, v, pos=pos)
+    big_out = decode_ops.decode_attention(q, kb, vb, pos=pos)
     torch.cuda.synchronize()
-    assert torch.equal(small, big)
+    assert torch.equal(small_out, big_out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_row_independent_of_batch(hopper, dtype):
+    b, kv, g, hd, t = 4, 8, 8, 128, 1100
+    q = _randn((b, 1, kv * g, hd), dtype, hopper, 12)
+    k = _randn((b, t, kv, hd), dtype, hopper, 13)
+    v = _randn((b, t, kv, hd), dtype, hopper, 14)
+    pos = torch.tensor([t - 1, 3, 128, 700], dtype=torch.int32, device=hopper)
+    batch = decode_ops.decode_attention(q, k, v, pos=pos)
+    for r in range(b):
+        alone = decode_ops.decode_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                            pos=pos[r:r + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(batch[r:r + 1], alone), f"row {r}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 8, 8), (64, 2, 5), (32, 1, 16)])
+def test_decode_kernel_matches_split_algorithm(hopper, dtype, hd, kv, g):
+    """The kernel against the plain form of its own split/combine algorithm:
+    fp32 at rtol 1e-5 (same splits, another order inside a split), bf16 at
+    2e-2 and again at :data:`DECODE_BF16_SPLIT_TOL` (P rounded to bf16 for
+    the tensor-core product, bf16 output)."""
+    b, t = 4, 1300
+    q = _randn((b, 1, kv * g, hd), dtype, hopper, 15)
+    k = _randn((b, t, kv, hd), dtype, hopper, 16)
+    v = _randn((b, t, kv, hd), dtype, hopper, 17)
+    pos = torch.tensor([0, 511, 512, t - 1], dtype=torch.int32, device=hopper)
+    out = decode_ops.decode_attention(q, k, v, pos=pos)
+    want = decode_attention_split(q.float()[:, 0].reshape(b, kv, g, hd),
+                                  k.float(), v.float(), pos,
+                                  split=decode_kernel.SPLIT)
+    torch.cuda.synchronize()
+    got = out.float().reshape(b, kv, g, hd)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        for rtol, atol in (TOL[dtype], DECODE_BF16_SPLIT_TOL):
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def test_decode_kernel_capacity_limit(hopper):
+    """The largest capacity the combine's shared memory takes launches and
+    matches the split algorithm; one split more is refused before launch."""
+    kv, g, hd = 1, 2, 16
+    cap = decode_kernel.MAX_SPLITS * decode_kernel.SPLIT
+    q = _randn((1, 1, kv * g, hd), torch.float32, hopper, 18)
+    k = _randn((1, cap, kv, hd), torch.float32, hopper, 19)
+    v = _randn((1, cap, kv, hd), torch.float32, hopper, 20)
+    pos = torch.tensor([cap - 1], dtype=torch.int32, device=hopper)
+    out = decode_ops.decode_attention(q, k, v, pos=pos)
+    want = decode_attention_split(q[:, 0].reshape(1, kv, g, hd), k, v, pos,
+                                  split=decode_kernel.SPLIT)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.reshape(1, kv, g, hd), want, rtol=1e-5, atol=1e-5)
+    big = torch.zeros((1, cap + 1, kv, hd), device=hopper)
+    with pytest.raises(ValueError, match="capacity"):
+        decode_ops.decode_attention(q, big, big, pos=pos)
 
 
 def test_wrappers_reject_bad_inputs(hopper):

@@ -1,5 +1,6 @@
-"""Import isolation of the PyTorch port: ``src/repro_torch/`` and
-``chip_smoke.py`` import neither JAX nor the JAX package, and the port's
+"""Import isolation of the PyTorch port: ``src/repro_torch/``,
+``chip_smoke.py`` and ``decode_turns.py`` import neither JAX nor the JAX
+package, and the port's
 serving and analytics modules import with ``jax`` blocked."""
 import ast
 import os
@@ -16,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "decode_turns.py"])
 
 
 def _imported_roots(path: Path):
