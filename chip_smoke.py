@@ -12,27 +12,32 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
   2. every kernel against its plain PyTorch version on the card, at the
      shapes of the full-width serving path, in fp32 (rtol 1e-4 / atol 1e-5)
      and bf16 (against the fp32 plain version on the same bf16 values,
-     rtol/atol 2e-2, for the bf16 output rounding); the decode kernel
-     also against the plain form of its split-KV algorithm, bitwise
+     rtol/atol 2e-2, and element by element within one bf16 ulp + 1e-6);
+     extend also at nb 1 and nb 100 (row blocks straddling two heads) and
+     bitwise invariant to padded capacity (caps 2176 vs 4096); the decode
+     kernel also against the plain form of its split-KV algorithm, bitwise
      invariant to padded capacity within one split and across several
      (caps 2048 vs 8192), and bitwise the same for a row alone and in a
      batch; the int8 dequant kernel bitwise against its plain
      version; each kernel's time (CUDA events, L2 flushed between
      launches) beside its bound, the plain version's time and one PyTorch
-     library call's time (a yardstick the port never calls), the decode
-     kernel also at the serving path's decode step (batch 1, position
-     3072) with its device time from ``torch.profiler``;
+     library call's time (a yardstick the port never calls), the attention
+     kernels with their device time from ``torch.profiler``, and decode
+     also at the serving path's decode step (batch 1, position 3072);
   3. reduced ``deepseek-67b`` (fp32) in ``ServeEngine`` on the card vs the
      same on the CPU: identical plans and greedy tokens, with a plain store
      and with an int8 store on host and disk tiers (identical segment ids
-     and tier counters too);
+     and tier counters too); then in bf16 (params and compute): logits
+     within ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps of the CPU's, and both
+     greedy streams printed;
   4. the main path at full width: ``deepseek-67b`` widths, bf16, depth cut
      from 95 to 24 layers so the weights fit one 80 GB card, a 4096-token
      document, chunk 128, requests with prefixes 2048, 4096, 3072 (16 new
      tokens each) and a replay of the first, with the kernels' launch
      counters read around it;
   5. where the time goes: ``torch.profiler`` over full-width decode steps
-     and one 128-token extend — device busy and idle time, top kernels;
+     and one 128-token extend — device busy and idle time, top kernels,
+     and the share of the port's attention kernels;
   6. residency at full width, on phase 4's model: the same requests over
      an int8 segment store (every reused segment dequantized by the
      ``quant_kv`` kernel), over the int8 store with host and disk tiers
@@ -158,6 +163,7 @@ def randn(shape, dtype, device, seed):
 def extend_phase(dev, timer) -> dict:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
+    from repro_torch.kernels.common import within_bf16_ulp
     from repro_torch.kernels.extend_attention.ops import extend_attention
     from repro_torch.kernels.extend_attention.ref import extend_attention_ref
 
@@ -166,20 +172,47 @@ def extend_phase(dev, timer) -> dict:
     err = {}
     for dtype, (rtol, atol) in ((torch.float32, (1e-4, 1e-5)),
                                 (torch.bfloat16, (2e-2, 2e-2))):
-        q = randn((b, nb, h, hd), dtype, dev, 1)
         k = randn((b, cap, kv, hd), dtype, dev, 2)
         v = randn((b, cap, kv, hd), dtype, dev, 3)
-        for t_real in (128, 2049, 4096):
+        # the main path's chunk; a 1-token extend; nb 100, where G*nb = 800
+        # is not a multiple of the kernel's 64-row blocks (a block straddles
+        # two heads)
+        for n, t_real in ((nb, 128), (nb, 2049), (nb, 4096), (1, 1), (1, 3000),
+                          (100, 100), (100, 4096)):
+            q = randn((b, n, h, hd), dtype, dev, 1)
             got = extend_attention(q, k, v, t_real=t_real)
             want = extend_attention_ref(q.float(), k.float(), v.float(),
                                         t_real=t_real)
             torch.cuda.synchronize()
             ok, e = within(got, want, rtol, atol)
-            print(f"  extend {str(dtype)[6:]:8s} t_real {t_real:4d}: "
-                  f"max |err| {e:.3g} (rtol {rtol}, atol {atol})")
+            line = (f"  extend {str(dtype)[6:]:8s} nb {n:3d} t_real {t_real:4d}: "
+                    f"max |err| {e:.3g} (rtol {rtol}, atol {atol})")
+            ulp_ok, worst = True, 0.0
+            if dtype == torch.bfloat16:
+                ulp_ok, worst = within_bf16_ulp(got, want)
+                line += f"; error up to {worst:.3f}x one bf16 ulp + 1e-6"
+            print(line)
             check(ok, f"extend kernel disagrees with its plain version "
-                      f"({dtype}, t_real {t_real}, max err {e})")
-            err[(dtype, t_real)] = e
+                      f"({dtype}, nb {n}, t_real {t_real}, max err {e})")
+            check(ulp_ok, f"bf16 extend kernel strays past one bf16 ulp of its "
+                          f"fp32 plain version (nb {n}, t_real {t_real}, {worst:.3f}x)")
+            err[(dtype, n, t_real)] = e
+
+        # bit-invariance to padded capacity, garbage tail: caps 2176 vs 4096
+        small = 2176
+        q = randn((b, nb, h, hd), dtype, dev, 1)
+        ks, vs = k[:, :small].contiguous(), v[:, :small].contiguous()
+        kb = randn((b, cap, kv, hd), dtype, dev, 7) * 100
+        vb = randn((b, cap, kv, hd), dtype, dev, 8) * 100
+        kb[:, :small], vb[:, :small] = ks, vs
+        for t_real in (2100, small):
+            same = torch.equal(extend_attention(q, ks, vs, t_real=t_real),
+                               extend_attention(q, kb, vb, t_real=t_real))
+            print(f"  extend {str(dtype)[6:]:8s} bit-invariant caps {small} vs {cap}, "
+                  f"t_real {t_real}: {same}")
+            check(same, f"extend output depends on padded capacity ({dtype}, "
+                        f"t_real {t_real})")
+        del kb, vb
 
     # timing at the largest chunk of the main path: t_real 4096, bf16
     dtype, t_real = torch.bfloat16, 4096
@@ -187,36 +220,42 @@ def extend_phase(dev, timer) -> dict:
     k = randn((b, cap, kv, hd), dtype, dev, 2)
     v = randn((b, cap, kv, hd), dtype, dev, 3)
     t_dev = torch.tensor(t_real, dtype=torch.int32, device=dev)
-    ms = timer.ms(lambda: extend_attention(q, k, v, t_real=t_dev))
+    call = lambda: extend_attention(q, k, v, t_real=t_dev)  # noqa: E731
+    ms = timer.ms(call)
+    dev_ms = device_ms(call, "")
     plain_ms = timer.ms(lambda: extend_attention_ref(q, k, v, t_real=t_real))
     q_pos = torch.arange(t_real - nb, t_real, device=dev)
     mask = torch.arange(cap, device=dev)[None, :] <= q_pos[:, None]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    try:
-        library_ms = timer.ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
-                                           enable_gqa=True))
-    except (TypeError, RuntimeError) as exc:   # yardstick only
-        print(f"  extend library yardstick unavailable: {exc}")
-        library_ms = None
+    lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    library_ms = library_time(timer, lib, "extend")
+    lib_dev = None if library_ms is None else device_ms(lib, "")
     keys = float((q_pos + 1).sum())            # causal keys this run needs
     flops = 4.0 * hd * h * b * keys
     nbytes = 2 * (2 * q.numel() + 2 * b * t_real * kv * hd) + 4
     bound_ms, bound_by = bound(flops, nbytes, dtype)
+    shape = f"B{b} KV{kv} G{g} hd{hd} nb{nb} cap{cap} t_real{t_real} bf16"
+    lib_s = "n/a" if library_ms is None else f"{library_ms:.4f} ms ({lib_dev:.4f} ms device)"
+    print(f"  extend timing [{shape}]: kernel {ms:.4f} ms per call ({dev_ms:.4f} ms "
+          f"device), bound {bound_ms:.6f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+          f"sdpa {lib_s}")
     return {"name": "extend_attention", "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": max(e for (dt, _), e in err.items() if dt == dtype),
-            "shape": f"B{b} KV{kv} G{g} hd{hd} nb{nb} cap{cap} t_real{t_real} bf16"}
+            "max_abs_err": max(e for (dt, *_), e in err.items() if dt == dtype),
+            "shape": shape}
 
 
 #: bf16 decode kernel against decode_attention_split: a few times the
-#: 5.6e-4 read on an H100 (P and the output rounded to bf16) and well
-#: below the output's scale (|out| ~ 0.02-0.05 at these positions)
+#: 5.6e-4 read on an H100 while P was rounded once to bf16, and well below
+#: the output's scale (|out| ~ 0.02-0.05 at these positions); the one-ulp
+#: check beside it is the tighter one
 DECODE_BF16_SPLIT_TOL = (1e-2, 2e-3)
 
 
 def decode_phase(dev, timer) -> dict:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
+    from repro_torch.kernels.common import within_bf16_ulp
     from repro_torch.kernels.decode_attention.kernel import SPLIT
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (decode_attention_blocked,
@@ -248,6 +287,13 @@ def decode_phase(dev, timer) -> dict:
             check(ok, f"decode kernel disagrees with its plain version "
                       f"({label}, {dtype}, rtol {rt}, atol {at}, max err {e})")
             err[dtype] = max(err.get(dtype, 0.0), e)
+        if dtype == torch.bfloat16:     # and within one bf16 ulp of both
+            for label, want, _ in checks[:2]:
+                ok, worst = within_bf16_ulp(got, want)
+                print(f"  decode bfloat16 pos {pos.tolist()} vs {label}: error up to "
+                      f"{worst:.3f}x one bf16 ulp + 1e-6")
+                check(ok, f"bf16 decode kernel strays past one bf16 ulp of its fp32 "
+                          f"plain version ({label}, {worst:.3f}x)")
 
         # bit-invariance to padded capacity, garbage tail: one split (caps
         # 256 vs 2048) and several splits through the combine (2048 vs 8192)
@@ -660,6 +706,62 @@ def reduced_parity(dev) -> None:
     print("  reduced cuda-vs-cpu: identical plans, tokens and stores: True")
 
 
+#: phase 3's bf16 run: the card's logits within this many bf16 ulps of the
+#: largest CPU logit.  Both devices round every bf16 matmul output and hidden
+#: state once, summing in different orders (cuBLAS against the CPU's
+#: kernels), so the two layers' hidden states may sit an ulp apart before
+#: the logits are rounded to bf16 themselves; on the CPU, bf16 against fp32
+#: on the same weights differs by 0.5-0.75 ulps of the largest logit at
+#: these prefixes.
+REDUCED_BF16_LOGIT_ULPS = 4
+
+
+def reduced_bf16_parity(dev) -> None:
+    """Reduced ``deepseek-67b`` with bf16 params and compute: the card (the
+    bf16 kernels) against the CPU's plain route (fp32 attention math, fp32
+    P), at the logits of three prefixes and in greedy streams; the CPU's
+    fp32 run on the same weights gives the scale of bf16 rounding."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.common import bf16_ulp
+    from repro_torch.models.common import tree_map_with_path
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(reduced(get_config("deepseek-67b")),
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    cpu_params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    runs = {"cpu": (LM(cfg, device="cpu"), cpu_params),
+            "cuda": (LM(cfg, device=dev),
+                     tree_map_with_path(lambda _, x: x.to(dev), cpu_params)),
+            "cpu fp32": (LM(cfg32, device="cpu"),
+                         tree_map_with_path(lambda _, x: x.float(), cpu_params))}
+    doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 256).astype(np.int32)
+    prefixes, requests = (200, 256, 130), ((200, 8), (256, 8), (130, 8), (256, 8))
+    logits, streams = {}, {}
+    for name, (model, params) in runs.items():
+        eng = ServeEngine(model, params, doc, chunk_tokens=64, device=model.device)
+        logits[name] = torch.cat([
+            eng.builder.prefix_with_logits(doc, n, doc_id=eng.doc_id,
+                                           capacity=n + 8)[0].float().cpu()
+            for n in prefixes])
+        streams[name] = [eng.generate(n, n_new)[0] for n, n_new in requests]
+    ulp = float(bf16_ulp(logits["cpu"].abs().max()))
+    d_card = float((logits["cuda"] - logits["cpu"]).abs().max())
+    d_fp32 = float((logits["cpu fp32"] - logits["cpu"]).abs().max())
+    print(f"  bf16 logits at prefixes {prefixes}: card vs CPU max |d| {d_card:.4g} "
+          f"({d_card / ulp:.2f} bf16 ulps of the largest logit "
+          f"{float(logits['cpu'].abs().max()):.4g}; limit {REDUCED_BF16_LOGIT_ULPS}); "
+          f"CPU bf16 vs CPU fp32 {d_fp32:.4g} ({d_fp32 / ulp:.2f} ulps)")
+    for (n, _), a, c in zip(requests, streams["cuda"], streams["cpu"]):
+        part = next((i for i, (x, y) in enumerate(zip(a, c)) if x != y), None)
+        print(f"  bf16 prefix {n}: cuda tokens {a} cpu tokens {c}: "
+              + ("identical" if part is None else f"part at token {part}"))
+    check(d_card <= REDUCED_BF16_LOGIT_ULPS * ulp,
+          f"reduced bf16 model: card and CPU logits differ by {d_card} "
+          f"(> {REDUCED_BF16_LOGIT_ULPS} bf16 ulps of {ulp})")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -728,6 +830,11 @@ def main_path(dev) -> dict:
     return counts, eng, ref
 
 
+#: profiler names of the port's bf16 attention kernels
+PORT_KERNELS = tuple(f"void (anonymous namespace)::{name}" for name in
+                     ("extend_mma_kernel", "split_kernel", "combine_kernel"))
+
+
 def where_time_goes(eng, dev) -> None:
     """torch.profiler over four full-width decode steps at position 3072 and
     one 128-token extend at 2048 (after the main path's counters are read):
@@ -771,6 +878,9 @@ def where_time_goes(eng, dev) -> None:
         for i, (key, ms, n) in enumerate(ranked):
             if i < 6 or "(anonymous namespace)::" in key:
                 print(f"    {ms:8.3f} ms  {ms / busy:5.1%}  x{n:<4d} {key[:90]}")
+        ours = sum(ms for key, ms, _ in rows if key.startswith(PORT_KERNELS))
+        print(f"    the port's attention kernels: {ours:.3f} ms of {busy:.2f} ms busy "
+              f"({ours / busy:.1%}); the rest {busy - ours:.2f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1254,6 +1364,8 @@ def main() -> int:
 
     print("[3] reduced deepseek-67b (fp32): card vs CPU")
     reduced_parity(dev)
+    print("    reduced deepseek-67b (bf16 params and compute): card vs CPU")
+    reduced_bf16_parity(dev)
 
     print(f"[4] full-width main path ({FULL_LAYERS} layers, bf16)")
     counts, eng, ref = main_path(dev)

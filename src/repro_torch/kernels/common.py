@@ -69,3 +69,26 @@ def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
         out.append(flat[at:at + t.numel()].astype(np.float64).reshape(t.shape))
         at += t.numel()
     return out
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x|, elementwise (0 where x is 0).
+
+    The bf16 attention kernels are held to ``|got − want| ≤ bf16_ulp(want)
+    + 1e-6`` against their fp32 plain versions: the output's own rounding
+    takes half an ulp, which leaves half an ulp for the kernel's arithmetic.
+    """
+    x = x.float()
+    _, e = torch.frexp(x.abs())                  # |x| = m·2^e, m in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(x), e - 8)  # 8 significant bits
+    return torch.where(x == 0, torch.zeros_like(x), ulp)
+
+
+def within_bf16_ulp(got: torch.Tensor, want: torch.Tensor,
+                    atol: float = 1e-6) -> tuple[bool, float]:
+    """Whether ``got`` is within one bf16 ulp of ``want`` (plus ``atol``)
+    everywhere, and the largest ratio of an error to its bound (≤ 1 passes)."""
+    err = (got.float() - want.float()).abs()
+    ulp = bf16_ulp(want)
+    ok = bool((err <= ulp + atol).all())
+    return ok, float((err / (ulp + atol)).max())

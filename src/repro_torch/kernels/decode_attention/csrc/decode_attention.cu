@@ -49,12 +49,19 @@
 //           V through ldmatrix.trans, P^T from the score fragment by
 //           movmatrix.trans (the accumulator layout of S^T is the transpose
 //           of the operand layout P^T needs).
-// P is rounded to bf16 for the second product, as FlashAttention does: the
-// one place where the bf16 path departs from the plain version's fp32 P
-// (l sums the fp32 P).  wgmma does not fit: its tiles have 64 rows, and a
-// decode has G = 8 query rows per KV head, so its M would be 8/64 used or
-// the positions would need 64-row tiles per warpgroup and a cross-warp
-// softmax for no gain in a byte-bound function.  fp32 inputs take the same
+// P enters the second product as three bf16 terms, P = P_0 + P_1 + P_2
+// with P_0 = bf16(P), P_1 = bf16(P - P_0), P_2 = bf16(P - P_0 - P_1), and
+// three mma accumulate them against the same V fragment in fp32: V is exact
+// in bf16 and P is carried to 2^-27 relative, so the product is the TPU
+// kernel's fp32 P.V (kernel.py:56-61) to within fp32 summation order; l
+// sums the fp32 P.  Two terms (2^-18) leave |P.V| errors up to ~4e-6 |v|
+// where few positions' P.V cancel to an output near zero, above the 1e-6
+// floor of the one-ulp check.  In this byte-bound kernel the extra mma
+// cost next to nothing.  wgmma does
+// not fit: its tiles have 64 rows, and a decode has G = 8 query rows per KV
+// head, so its M would be 8/64 used or the positions would need 64-row
+// tiles per warpgroup and a cross-warp softmax for no gain in a byte-bound
+// function.  fp32 inputs take the same
 // pipeline (16-byte loads of 4 floats) with scalar fp32 math on the CUDA
 // cores, no TF32.
 //
@@ -153,6 +160,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+// (x, y) as three bf16 pairs t[0] + t[1] + t[2] that carry them to 2^-27
+// relative: each term rounds what the ones before left, and each remainder
+// is exact in fp32
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t (&t)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 hf = __bfloat1622float2(h);
+    t[i] = *reinterpret_cast<const uint32_t*>(&h);
+    x -= hf.x;
+    y -= hf.y;
+  }
+}
 
 // Copy one warp tile (rows [r0, r0 + 16) of the split) of k or v into dst;
 // rows at or past n_valid are zero-filled without reading memory.
@@ -231,7 +251,7 @@ struct MmaWarp {
 
   __device__ void update(const __nv_bfloat16* vt, float (&s)[NTG][4], int lane) {
     constexpr int RS = row_stride<__nv_bfloat16, HD>();
-    uint32_t pb[NTG][2];
+    uint32_t pb[3][NTG][2];            // P^T operands, one per bf16 term of P
 #pragma unroll
     for (int nt = 0; nt < NTG; ++nt) {
       float corr[2];
@@ -252,8 +272,13 @@ struct MmaWarp {
       for (int md = 0; md < HD / 16; ++md)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[md][nt][e] *= corr[e & 1];
-      pb[nt][0] = movmatrix_trans(pack_bf16(s[nt][0], s[nt][1]));
-      pb[nt][1] = movmatrix_trans(pack_bf16(s[nt][2], s[nt][3]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t t[3];
+        split3_bf16(s[nt][2 * r], s[nt][2 * r + 1], t);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) pb[i][nt][r] = movmatrix_trans(t[i]);
+      }
     }
     const int mi = lane >> 3;
     const __nv_bfloat16* a_row = vt + ((lane & 7) + (mi >> 1) * 8) * RS + (mi & 1) * 8;
@@ -262,7 +287,9 @@ struct MmaWarp {
       uint32_t a[4];
       ldmatrix_x4_trans(a, a_row + md * 16);
 #pragma unroll
-      for (int nt = 0; nt < NTG; ++nt) mma_bf16(o[md][nt], a, pb[nt][0], pb[nt][1]);
+      for (int nt = 0; nt < NTG; ++nt)
+#pragma unroll
+        for (int i = 0; i < 3; ++i) mma_bf16(o[md][nt], a, pb[i][nt][0], pb[i][nt][1]);
     }
   }
 

@@ -36,9 +36,9 @@ def extend_attention_cuda(q, k, v, t_real):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {q.device}")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("k/v must start on a 16-byte boundary (the kernel "
-                         "reads them with 16-byte loads)")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("q/k/v must start on a 16-byte boundary (the kernel "
+                         "reads them with 16-byte copies)")
     if not (isinstance(t_real, torch.Tensor) and t_real.dtype == torch.int32
             and t_real.numel() == 1 and t_real.device == q.device):
         raise TypeError("t_real must be a one-element int32 tensor on "

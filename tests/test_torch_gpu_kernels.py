@@ -8,8 +8,12 @@ the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu_kernels.py
 
 Tolerances: attention fp32 rtol 1e-4 / atol 1e-5 (reduction order); bf16
-inputs against the fp32 plain version on the same bf16 values at 2e-2, for
-the bf16 rounding of the output.  The int8 dequant kernel must equal its
+inputs against the fp32 plain version on the same bf16 values at 2e-2, and
+element by element within one bf16 ulp of it plus 1e-6
+(``common.within_bf16_ulp``): the output's rounding takes half an ulp, and
+both kernels carry P into the P·V product as a sum of three bf16 terms,
+to 2^-27.  Extend output is bitwise invariant to padded capacity, decode
+output to capacity and to the batch.  The int8 dequant kernel must equal its
 plain version bitwise (one fp32 multiply, one rounding).  The analytics
 kernels keep
 ``tests/test_kernels.py``'s tolerances (fp32 sums in another order), and two
@@ -19,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.common import within_bf16_ulp  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
@@ -43,9 +48,15 @@ pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 #: bf16 decode kernel against the plain form of its own algorithm: a few
-#: times the 5.6e-4 an H100 gives at chip_smoke.py's decode shape (P and the
-#: output rounded to bf16), well below outputs of |out| ~ 0.02-1
+#: times the 5.6e-4 an H100 gave at chip_smoke.py's decode shape while P was
+#: rounded once to bf16, well below outputs of |out| ~ 0.02-1; the one-ulp
+#: check beside it is the tighter one
 DECODE_BF16_SPLIT_TOL = (1e-2, 2e-3)
+
+
+def _assert_within_one_ulp(got, want):
+    ok, worst = within_bf16_ulp(got, want)
+    assert ok, f"bf16 output strays {worst:.3g}x past one bf16 ulp (+1e-6)"
 
 
 @pytest.fixture
@@ -77,6 +88,45 @@ def test_extend_kernel_matches_plain(hopper, dtype, hd, kv, g, t_real):
     want = extend_attention_ref(q.float(), k.float(), v.float(), t_real=t_real)
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _assert_within_one_ulp(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb,t_real", [(1, 1), (1, 300), (100, 100), (100, 511)])
+def test_extend_kernel_rows_straddle_heads(hopper, dtype, nb, t_real):
+    """A 1-token extend (G rows in one block) and nb 100 at G 8 (G·nb = 800,
+    not a multiple of 64: row blocks straddle two heads)."""
+    b, kv, g, hd, cap = 2, 2, 8, 128, 512
+    q = _randn((b, nb, kv * g, hd), dtype, hopper, 34)
+    k = _randn((b, cap, kv, hd), dtype, hopper, 35)
+    v = _randn((b, cap, kv, hd), dtype, hopper, 36)
+    out = extend_ops.extend_attention(q, k, v, t_real=t_real)
+    want = extend_attention_ref(q.float(), k.float(), v.float(), t_real=t_real)
+    torch.cuda.synchronize()
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _assert_within_one_ulp(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("small,big,nb,t_real", [
+    (256, 1024, 128, 256), (200, 640, 100, 163), (130, 2176, 1, 97)])
+def test_extend_kernel_bit_invariant_to_capacity(hopper, dtype, small, big, nb, t_real):
+    """A garbage tail (×100) past t_real at the larger capacity changes no
+    bit of the output."""
+    b, kv, g, hd = 1, 4, 8, 64
+    q = _randn((b, nb, kv * g, hd), dtype, hopper, 37)
+    k = _randn((b, small, kv, hd), dtype, hopper, 38)
+    v = _randn((b, small, kv, hd), dtype, hopper, 39)
+    kb = _randn((b, big, kv, hd), dtype, hopper, 40) * 100
+    vb = _randn((b, big, kv, hd), dtype, hopper, 41) * 100
+    kb[:, :small], vb[:, :small] = k, v
+    small_out = extend_ops.extend_attention(q, k, v, t_real=t_real)
+    big_out = extend_ops.extend_attention(q, kb, vb, t_real=t_real)
+    torch.cuda.synchronize()
+    assert torch.equal(small_out, big_out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -96,6 +146,8 @@ def test_decode_kernel_matches_plain(hopper, dtype, hd, kv, g):
     rtol, atol = TOL[dtype]
     torch.testing.assert_close(out.float().reshape(b, kv, g, hd), want,
                                rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _assert_within_one_ulp(out.reshape(b, kv, g, hd), want)
 
 
 @pytest.mark.parametrize("small,big,pos_list", [
@@ -137,8 +189,8 @@ def test_decode_kernel_row_independent_of_batch(hopper, dtype):
 def test_decode_kernel_matches_split_algorithm(hopper, dtype, hd, kv, g):
     """The kernel against the plain form of its own split/combine algorithm:
     fp32 at rtol 1e-5 (same splits, another order inside a split), bf16 at
-    2e-2 and again at :data:`DECODE_BF16_SPLIT_TOL` (P rounded to bf16 for
-    the tensor-core product, bf16 output)."""
+    2e-2, at :data:`DECODE_BF16_SPLIT_TOL` and within one bf16 ulp (P as
+    three bf16 terms in the tensor-core product, bf16 output)."""
     b, t = 4, 1300
     q = _randn((b, 1, kv * g, hd), dtype, hopper, 15)
     k = _randn((b, t, kv, hd), dtype, hopper, 16)
@@ -155,6 +207,7 @@ def test_decode_kernel_matches_split_algorithm(hopper, dtype, hd, kv, g):
     else:
         for rtol, atol in (TOL[dtype], DECODE_BF16_SPLIT_TOL):
             torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        _assert_within_one_ulp(got, want)
 
 
 def test_decode_kernel_capacity_limit(hopper):
