@@ -60,7 +60,16 @@ Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
 versions at ``repro``'s sweep shapes with ``tests/test_kernels.py``'s
 tolerances, shows that two launches on the same data agree bitwise, and
-times them at the analytics path's shapes.
+times them at the analytics path's shapes.  ``linreg_stats`` (50K and 5M x
+10) and ``quant_kv`` (a stored segment of two 128-token, then 4096-token
+leaves, through ``dequantize_tree``) are timed three ways: the call
+(``Timer``), the device (every profiled device activity of one call, and
+how many there are) and the host (the wrapper's enqueue time over 200
+calls); each must take one launch and one device kernel per call (per
+segment), and ``linreg_stats`` must give bitwise the same G 20 times over,
+on views from row 0 and from an odd row, and with a second stream's calls
+interleaved.  Phase 6 needs one ``quant_kv`` launch per dequantized
+segment, phase 8 one ``linreg_stats`` launch per statistics pass.
 
 Any failure exits non-zero.  The last two lines are the ``nvidia-smi``
 line and ``{"ok": true, "device": {...}}``; the line before them lists
@@ -365,9 +374,10 @@ def normwise(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
-def device_ms(fn, kernel: str, launches: int = 20) -> float:
-    """Mean device time of one launch of the kernels whose name holds
-    ``kernel``, from ``torch.profiler`` (no host time in it)."""
+def device_profile(fn, kernel: str = "", launches: int = 20) -> tuple[float, float]:
+    """Mean device time of one call of ``fn`` summed over the device
+    activities (kernels, copies) whose name holds ``kernel``, and how many
+    of them one call runs, from ``torch.profiler`` (no host time in it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -377,8 +387,43 @@ def device_ms(fn, kernel: str, launches: int = 20) -> float:
         for _ in range(launches):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3 / launches
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / launches,
+            sum(e.count for e in events) / launches)
+
+
+def device_ms(fn, kernel: str, launches: int = 20) -> float:
+    """Mean device time of one launch of the kernels whose name holds
+    ``kernel``, from ``torch.profiler`` (no host time in it)."""
+    return device_profile(fn, kernel, launches)[0]
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """The wrapper's enqueue time: the host clock over ``calls`` calls with
+    no synchronise between them, per call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def call_split(timer, fn) -> dict:
+    """One call of ``fn`` three ways: ``call`` (``Timer``: CUDA events, L2
+    flushed), ``device`` (every device activity of one call, summed, and
+    ``kernels``, how many there are) and ``host`` (enqueue time)."""
+    dev, kernels = device_profile(fn)
+    return {"call": timer.ms(fn), "device": dev, "kernels": kernels,
+            "host": host_ms(fn)}
+
+
+def split_line(t: dict) -> str:
+    return (f"call {t['call']:.4f} ms, device {t['device']:.4f} ms ({t['kernels']:g} "
+            f"per call), host {t['host']:.4f} ms")
 
 
 def library_time(timer, fn, label):
@@ -389,14 +434,54 @@ def library_time(timer, fn, label):
         return None
 
 
+def linreg_onepass_checks(dev, X, y) -> None:
+    """The narrow form at the query's and the table's shape: one launch per
+    call (launch counter and profiler), bitwise repeatable on views from
+    row 0 and from an odd row, and undisturbed by a second stream's calls
+    interleaved with the first's (each stream has its own ticket)."""
+    from repro_torch.kernels.linreg_stats import kernel as lk
+    from repro_torch.kernels.linreg_stats.ops import zt_z
+
+    n = X.shape[0]
+    views = {f"{m} rows from row {lo}": (X[lo:lo + m], y[lo:lo + m])
+             for m, lo in ((50_000, 0), (50_000, 1), (n, 0), (n - 1, 1))}
+    ref = {}
+    for label, (Xv, yv) in views.items():
+        before = lk.KERNEL.launches
+        ref[label] = zt_z(Xv, yv)
+        launches = lk.KERNEL.launches - before
+        _, kernels = device_profile(lambda: zt_z(Xv, yv))
+        again = [zt_z(Xv, yv) for _ in range(20)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(G, ref[label]) for G in again)
+        print(f"  linreg_stats {label} x {X.shape[1]}: {launches} launch per call, "
+              f"{kernels:g} device kernel per call; 20 more calls bitwise equal: {same}")
+        check(launches == 1 and kernels == 1, f"linreg_stats at {label}: {launches} "
+                                              f"launches, {kernels} kernels per call")
+        check(same, f"linreg_stats is not bitwise repeatable at {label}")
+    side = torch.cuda.Stream(dev)
+    labels = list(views)
+    mixed = []
+    for i in range(12):
+        a, b = labels[i % 4], labels[(i + 1) % 4]
+        with torch.cuda.stream(side):
+            mixed.append((a, zt_z(*views[a])))
+        mixed.append((b, zt_z(*views[b])))
+    torch.cuda.synchronize()
+    same = all(torch.equal(G, ref[label]) for label, G in mixed)
+    print(f"  linreg_stats on two streams, 24 calls interleaved: bitwise each view's "
+          f"single-stream result: {same}")
+    check(same, "a second stream's linreg_stats calls disturbed the first's")
+
+
 def linreg_stats_phase(dev, timer) -> dict:
-    from repro_torch.kernels.linreg_stats.ops import linreg_stats
+    from repro_torch.kernels.linreg_stats.ops import linreg_stats, zt_z
     from repro_torch.kernels.linreg_stats.ref import linreg_stats_ref
 
     err = {}
     for dtype in (torch.float32, torch.bfloat16):
         rtol = 5e-3 if dtype == torch.bfloat16 else 5e-4
-        for n in (64, 513, 2048):
+        for n in (1, 3, 64, 513, 2048, 50_000):
             for d in (3, 10, 127, 130):
                 X = randn((n, d), dtype, dev, 40)
                 y = randn((n,), dtype, dev, 41)
@@ -408,7 +493,7 @@ def linreg_stats_phase(dev, timer) -> dict:
                     check(ok, f"linreg_stats disagrees with its plain version "
                               f"({dtype}, n {n}, d {d}, {name}, max err {e})")
                     err[dtype] = max(err.get(dtype, 0.0), e)
-        print(f"  linreg_stats {str(dtype)[6:]:8s} n 64/513/2048 x d 3/10/127/130: "
+        print(f"  linreg_stats {str(dtype)[6:]:8s} n 1/3/64/513/2048/50000 x d 3/10/127/130: "
               f"max |err| {err[dtype]:.3g} (rtol {rtol}, atol n*2e-2*rtol)")
 
     n, d = 5_000_000, 10
@@ -428,23 +513,27 @@ def linreg_stats_phase(dev, timer) -> dict:
     check(same, "linreg_stats is not bitwise repeatable")
     check(nerr <= SUM_NORMWISE, "linreg_stats strays from the float64 statistics at 5M x 10")
     del Xd, yd
+    linreg_onepass_checks(dev, X, y)
 
     rows = {}
-    for m in (n, 50_000):
+    for m in (50_000, n):
         Xm, ym = X[:m], y[:m]
         Z = torch.cat([Xm, ym[:, None]], 1)
-        rows[m] = (timer.ms(lambda: linreg_stats(Xm, ym)),
-                   timer.ms(lambda: linreg_stats_ref(Xm, ym)),
-                   library_time(timer, lambda: torch.matmul(Z.T, Z), "linreg_stats"),
-                   *bound(2.0 * m * (d + 1) ** 2, 4.0 * (m * (d + 1) + (d + 1) ** 2),
-                          torch.float32))
-        print(f"  linreg_stats {m} x {d} fp32: kernel {rows[m][0]:.4f} ms, bound "
-              f"{rows[m][3]:.4f} ms ({rows[m][4]}), plain {rows[m][1]:.4f} ms, "
-              f"library matmul(Z.T, Z) {rows[m][2]} ms")
-    ms, plain_ms, library_ms, bound_ms, bound_by = rows[n]
-    return {"name": "linreg_stats", "ms": ms, "plain_ms": plain_ms,
+        t = call_split(timer, lambda: zt_z(Xm, ym))
+        sliced = call_split(timer, lambda: linreg_stats(Xm, ym))
+        lib = call_split(timer, lambda: torch.matmul(Z.T, Z))
+        plain_ms = timer.ms(lambda: linreg_stats_ref(Xm, ym))
+        bound_ms, bound_by = bound(2.0 * m * (d + 1) ** 2,
+                                   4.0 * (m * (d + 1) + (d + 1) ** 2), torch.float32)
+        rows[m] = t, plain_ms, lib["call"], bound_ms, bound_by
+        print(f"  linreg_stats {m} x {d} fp32: kernel (zt_z, the path's call) "
+              f"{split_line(t)}; bound {bound_ms:.4f} ms ({bound_by}), plain "
+              f"{plain_ms:.4f} ms, library matmul(Z.T, Z) {split_line(lib)}; "
+              f"linreg_stats (G sliced into A, B) {split_line(sliced)}")
+    t, plain_ms, library_ms, bound_ms, bound_by = rows[50_000]
+    return {"name": "linreg_stats", "ms": t["call"], "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err[torch.float32], "shape": f"n {n} d {d} fp32"}
+            "max_abs_err": err[torch.float32], "shape": f"n 50000 d {d} fp32"}
 
 
 def nb_stats_phase(dev, timer) -> dict:
@@ -584,8 +673,9 @@ def logreg_sgd_phase(dev, timer) -> dict:
 def quant_kv_phase(dev, timer) -> dict:
     """The int8 KV dequant kernel bitwise against its plain version (one
     fp32 multiply, one rounding to the output type), then timed on a
-    stored leaf of the full-width path."""
-    from repro_torch.core.quant import quantize_leaf
+    stored segment of the full-width path."""
+    from repro_torch.core.quant import dequantize_tree, quantize_leaf, quantize_tree
+    from repro_torch.kernels.quant_kv import kernel as qk
     from repro_torch.kernels.quant_kv.ops import dequantize_leaf
     from repro_torch.kernels.quant_kv.ref import dequantize_leaf_ref
 
@@ -611,31 +701,53 @@ def quant_kv_phase(dev, timer) -> dict:
     print(f"  quant_kv {len(cases)} leaves x fp32/bf16 out: bitwise equal to the plain "
           f"version (max |err| {err})")
 
+    # a stored segment of the full-width path: k and v leaves (24 layers,
+    # batch 1, S tokens, 8 KV heads, hd 128) in bf16, through the path's
+    # own entry point (core/quant.py::dequantize_tree)
     rows = {}
+    d0, d1, H, cols, block = 24, 1, 8, 128, 64
     for S in (128, 4096):
-        d0, d1, H, cols, block = 24, 1, 8, 128, 64
-        x = randn((d0, d1, S, H, cols), torch.bfloat16, dev, 61)
-        q, s = quantize_leaf(x, block)
+        x = {"k": randn((d0, d1, S, H, cols), torch.bfloat16, dev, 61),
+             "v": randn((d0, d1, S, H, cols), torch.bfloat16, dev, 62)}
+        qtree, meta = quantize_tree(x, block=block)
+        del x
         nb = S // block
-        qv, sv = q.view(d0, d1, nb, block, H, cols), s.view(d0, d1, nb, 1, H, 1)
-        for dtype in (torch.bfloat16, torch.float32):
-            out_bytes = q.numel() * torch.empty((), dtype=dtype).element_size()
-            call = lambda: dequantize_leaf(q, s, block=block, dtype=dtype)  # noqa: E731
-            rows[S, dtype] = (
-                timer.ms(call),
-                timer.ms(lambda: dequantize_leaf_ref(q, s, block=block, dtype=dtype)),
-                library_time(timer, lambda: torch.mul(qv, sv), "quant_kv"),
-                *bound(float(q.numel()), q.numel() + out_bytes + 4.0 * s.numel(),
-                       torch.float32))
-            r = rows[S, dtype]
-            print(f"  quant_kv leaf ({d0}, {d1}, {S}, {H}, {cols}) int8 -> "
-                  f"{str(dtype)[6:]}: kernel {r[0]:.4f} ms (device time alone "
-                  f"{device_ms(call, 'dequant_'):.4f} ms, L2 warm), bound {r[3]:.6f} ms "
-                  f"({r[4]}), plain {r[1]:.4f} ms, library torch.mul (fp32 out) {r[2]} ms")
-    ms, plain_ms, library_ms, bound_ms, bound_by = rows[128, torch.bfloat16]
-    return {"name": "quant_kv", "ms": ms, "plain_ms": plain_ms,
+        qs = torch.stack([qtree["k"], qtree["v"]]).view(2, d0, d1, nb, block, H, cols)
+        ss = torch.stack([meta.scales[j] for j in sorted(meta.scales)]).view(
+            2, d0, d1, nb, 1, H, 1)
+        call = lambda: dequantize_tree(qtree, meta)  # noqa: E731
+        got, want = call(), {k: dequantize_leaf_ref(q, meta.scales[str(j)], block=block,
+                                                    dtype=torch.bfloat16)
+                             for j, (k, q) in enumerate(sorted(qtree.items()))}
+        torch.cuda.synchronize()
+        check(all(torch.equal(got[k], want[k]) for k in want),
+              f"quant_kv segment of S {S} differs from its plain version")
+        before = qk.KERNEL.launches
+        call()
+        launches = qk.KERNEL.launches - before
+        t = call_split(timer, call)
+        print(f"  quant_kv segment of S {S}: bitwise equal to the plain version; "
+              f"{launches} launch per segment, {t['kernels']:g} device kernel per segment")
+        check(launches == 1 and t["kernels"] == 1,
+              f"quant_kv took {launches} launches, {t['kernels']} kernels for one segment")
+        lib = call_split(timer, lambda: torch.mul(qs, ss))
+        plain_ms = timer.ms(lambda: {k: dequantize_leaf_ref(q, meta.scales[str(j)], block=block,
+                                                            dtype=torch.bfloat16)
+                                     for j, (k, q) in enumerate(sorted(qtree.items()))})
+        numel = 2 * qtree["k"].numel()
+        bound_ms, bound_by = bound(float(numel), 3.0 * numel + 4.0 * ss.numel(),
+                                   torch.float32)
+        rows[S] = t, plain_ms, lib["call"], bound_ms, bound_by
+        print(f"  quant_kv segment of two ({d0}, {d1}, {S}, {H}, {cols}) int8 leaves -> "
+              f"bf16, block {block}: kernel {split_line(t)}; bound {bound_ms:.6f} ms "
+              f"({bound_by}), plain {plain_ms:.4f} ms, library torch.mul over the "
+              f"stacked leaves (fp32 out) {split_line(lib)}")
+        del qtree, meta, qs, ss, got, want
+    t, plain_ms, library_ms, bound_ms, bound_by = rows[128]
+    return {"name": "quant_kv", "ms": t["call"], "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err, "shape": "leaf (24, 1, 128, 8, 128) block 64 int8 -> bf16"}
+            "max_abs_err": err,
+            "shape": "segment of two (24, 1, 128, 8, 128) leaves, block 64, int8 -> bf16"}
 
 
 # ---------------------------------------------------------------------------
@@ -986,9 +1098,9 @@ def residency_phase(base, ref, dev) -> int:
               "int8 store holds a segment at model precision")
         check(len(leaves) == 1, f"segments with different quantized leaves: {leaves}")
         n_leaves = leaves.pop()
-        check(eng1.builder.dequants > 0 and launches1 == eng1.builder.dequants * n_leaves,
+        check(eng1.builder.dequants > 0 and launches1 == eng1.builder.dequants,
               f"quant_kv launches {launches1} != dequantized segments "
-              f"{eng1.builder.dequants} x {n_leaves} quantized leaves")
+              f"{eng1.builder.dequants} (one launch per segment)")
         check(bool(torch.isfinite(logits1.float()).all()), "int8 logits not finite")
         # the quantization error alone: the cold request's first segment was
         # computed the same way for both stores
@@ -1091,9 +1203,10 @@ def residency_phase(base, ref, dev) -> int:
         shutil.rmtree(root, ignore_errors=True)
     launches = qk.KERNEL.launches
     print(f"  residency-phase launches: quant_kv {launches} (= {dequants} dequantized "
-          f"segments x {n_leaves} leaves), extend {ek.KERNEL.launches}, decode "
-          f"{dk.KERNEL.launches}")
-    check(launches == dequants * n_leaves, "quant_kv launched off the reuse path")
+          f"segments of {n_leaves} leaves, one launch each), extend {ek.KERNEL.launches}, "
+          f"decode {dk.KERNEL.launches}")
+    check(launches == dequants, "quant_kv launched off the reuse path, or more than "
+                                "once per segment")
     return launches
 
 
@@ -1230,8 +1343,7 @@ def analytics_main_path(dev) -> dict:
     """The paper's workload through ``IncrementalAnalyticsEngine`` on the
     card, against ``baseline`` on the same queries."""
     from repro_torch.configs.paper import PAPER_WORKLOAD as P
-    from repro_torch.core.descriptors import Range, coalesce
-    from repro_torch.core.engine import IncrementalAnalyticsEngine
+    from repro_torch.core import linreg as core_linreg
     from repro_torch.kernels.linreg_stats import kernel as lk
     from repro_torch.kernels.logreg_sgd import kernel as sk
     from repro_torch.kernels.nb_stats import kernel as nk
@@ -1252,6 +1364,39 @@ def analytics_main_path(dev) -> dict:
     kernels = {"linreg_stats": lk.KERNEL, "nb_stats": nk.KERNEL, "logreg_sgd": sk.KERNEL}
     for k in kernels.values():
         k.launches = 0
+    # count linreg's statistics passes over tensors (each a kernel call)
+    passes = {"linreg": 0}
+    compute_stats = core_linreg.compute_stats
+
+    def counted(X, y):
+        passes["linreg"] += isinstance(X, torch.Tensor)
+        return compute_stats(X, y)
+
+    core_linreg.compute_stats = counted
+    try:
+        analytics_families(dev, tables, kernels, n, n_queries, P)
+    finally:
+        core_linreg.compute_stats = compute_stats
+    counts = {name: k.launches for name, k in kernels.items()}
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"  analytics main-path launches: {counts}; max memory allocated "
+          f"{mem / 2**20:.0f} MiB (resident tables {resident / 2**20:.0f} MiB)")
+    print(f"  linreg statistics passes over the card's tables: {passes['linreg']}, "
+          f"linreg_stats launches: {counts['linreg_stats']} (one per pass)")
+    check(all(v > 0 for v in counts.values()),
+          f"a statistics kernel was not launched on the analytics path: {counts}")
+    check(counts["linreg_stats"] == passes["linreg"],
+          "linreg_stats launched other than once per statistics pass")
+    check(mem >= resident, "max memory allocated does not cover the resident tables")
+    return counts
+
+
+def analytics_families(dev, tables, kernels, n, n_queries, P) -> None:
+    """Phase 8's run of each family: warm-up, queries against baseline,
+    the profiler, the store's save and reload."""
+    from repro_torch.core.descriptors import Range, coalesce
+    from repro_torch.core.engine import IncrementalAnalyticsEngine
+
     rng = np.random.default_rng(0)
     for family in ANALYTICS_FAMILIES:
         params = family_params(family, P)
@@ -1312,14 +1457,6 @@ def analytics_main_path(dev) -> dict:
         if family != "logreg":
             print(f"    {len(samples)} reused queries against baseline: normwise err "
                   f"within 1e-3 (weights / NB moments)")
-    counts = {name: k.launches for name, k in kernels.items()}
-    mem = torch.cuda.max_memory_allocated(dev)
-    print(f"  analytics main-path launches: {counts}; max memory allocated "
-          f"{mem / 2**20:.0f} MiB (resident tables {resident / 2**20:.0f} MiB)")
-    check(all(v > 0 for v in counts.values()),
-          f"a statistics kernel was not launched on the analytics path: {counts}")
-    check(mem >= resident, "max memory allocated does not cover the resident tables")
-    return counts
 
 
 # ---------------------------------------------------------------------------

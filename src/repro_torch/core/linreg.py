@@ -18,7 +18,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import to_host
 from repro_torch.kernels.linreg_stats import ops as k_ops
 
 from .suffstats import LinRegStats
@@ -54,8 +53,12 @@ def compute_stats(X, y) -> LinRegStats:
     a CUDA tensor, its plain version on a CPU tensor) in fp32.
     """
     if isinstance(X, torch.Tensor):
-        A, B = to_host(*k_ops.linreg_stats(X, y))
-        return LinRegStats(n=np.asarray(float(X.shape[0]), np.float64), A=A, B=B)
+        # G = [X | y]ᵀ[X | y] comes to the host in one copy (which also
+        # waits for the device); A and B are its blocks
+        d = X.shape[1]
+        G = k_ops.zt_z(X, y).cpu().numpy().astype(np.float64)
+        return LinRegStats(n=np.asarray(float(X.shape[0]), np.float64),
+                           A=G[:d, :d].copy(), B=G[:d, d].copy())
     return LinRegStats.from_data(X, y)
 
 

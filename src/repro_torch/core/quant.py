@@ -26,6 +26,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.kernels.quant_kv import ops as quant_ops
 from repro_torch.models.common import CACHE_SEQ_KEYS, cache_leaf_key
 
 #: store-level precision settings: "auto" lets the cost model arbitrate
@@ -137,9 +138,7 @@ def quantize_leaf(x: torch.Tensor, block: int):
 
 def dequantize_leaf(q, scale, *, block: int, dtype):
     """Inverse of :func:`quantize_leaf`, through the kernel layer."""
-    from repro_torch.kernels.quant_kv import ops
-
-    return ops.dequantize_leaf(q, scale, block=block, dtype=dtype)
+    return quant_ops.dequantize_leaf(q, scale, block=block, dtype=dtype)
 
 
 def _quantizable(path, x) -> bool:
@@ -169,13 +168,22 @@ def quantize_tree(caches, *, block: int):
 
 
 def dequantize_tree(qtree, meta: QuantMeta):
-    """Reconstruct model-precision caches from a quantized tree."""
+    """Reconstruct model-precision caches from a quantized tree.
 
-    def f(j, path, x):
-        k = str(j)
-        if k not in meta.scales:
-            return x
-        return dequantize_leaf(x, meta.scales[k], block=meta.block,
-                               dtype=meta.dtypes[k])
-
-    return _map_sorted(f, qtree)
+    The quantized leaves go to the kernel layer together, one call (one
+    launch on the card) per output dtype and per ``MAX_LEAVES`` leaves: a
+    stored segment's k and v make one."""
+    flat = sorted_leaves_with_path(qtree)
+    by_dtype: dict[str, list[int]] = {}
+    for key in meta.scales:
+        by_dtype.setdefault(meta.dtypes[key], []).append(int(key))
+    out = {}
+    for dtype, js in by_dtype.items():
+        js.sort()
+        for i in range(0, len(js), quant_ops.MAX_LEAVES):
+            part = js[i:i + quant_ops.MAX_LEAVES]
+            res = quant_ops.dequantize_leaves([(flat[j][1], meta.scales[str(j)]) for j in part],
+                                              block=meta.block, dtype=dtype)
+            out.update(zip(part, res))
+    order = {path: j for j, (path, _) in enumerate(flat)}
+    return _map_sorted(lambda j, path, x: out.get(j, x), qtree, (), order)

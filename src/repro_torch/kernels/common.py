@@ -42,22 +42,61 @@ def pad_axis(x: torch.Tensor, axis: int, target: int, value: float = 0.0):
     return F.pad(x, pads, value=value)
 
 
+#: compute capability per CUDA device index, read once
+_CAPABILITY: dict[int, tuple[int, int]] = {}
+
+
 def uses_kernel(x: torch.Tensor) -> bool:
     """True when ``x`` lives on a CUDA device and must go to the kernel.
 
     Raises on a CUDA device below compute capability 9.0: the kernels are
     built for ``sm_90a`` only.  CPU tensors return False (plain version).
     """
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return False
         raise ValueError(f"no kernel route for device {x.device}")
-    cap = torch.cuda.get_device_capability(x.device)
+    index = x.get_device()
+    cap = _CAPABILITY.get(index)
+    if cap is None:
+        cap = _CAPABILITY[index] = torch.cuda.get_device_capability(index)
     if cap < (9, 0):
         raise RuntimeError(
-            f"{torch.cuda.get_device_name(x.device)} has compute capability "
+            f"{torch.cuda.get_device_name(index)} has compute capability "
             f"{cap[0]}.{cap[1]}; the port's kernels need 9.0 (Hopper)")
     return True
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device ``index``:
+    the stream a wrapper launches on.  PyTorch's own accessor (what its
+    compiled kernels launch on) returns it without building a
+    ``torch.cuda.Stream`` object per call; CUDA builds only."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+class StreamWorkspace:
+    """Scratch a kernel keeps across calls, one buffer per (device, stream).
+
+    Zeroed once when it is made and grown (made anew, zeroed) when a call
+    needs more, so a wrapper allocates nothing per call but its output.
+    Keyed by stream as well as device: a kernel that leaves state in its
+    scratch between launches (a ticket that returns to 0) never shares it
+    with a launch in flight on another stream.
+    """
+
+    def __init__(self) -> None:
+        self._buffers: dict[tuple[int, int], torch.Tensor] = {}
+
+    def get(self, index: int, stream: int, floats: int) -> torch.Tensor:
+        buf = self._buffers.get((index, stream))
+        if buf is None or buf.numel() < floats:
+            # made on the current stream (the one it is keyed by), so the
+            # zeroing is ordered before every launch that uses it
+            buf = torch.zeros(floats, dtype=torch.float32,
+                              device=torch.device("cuda", index))
+            self._buffers[(index, stream)] = buf
+        return buf
 
 
 def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:

@@ -1,11 +1,13 @@
 """Public wrappers for the int8 KV dequantization kernel.
 
-``dequantize_leaf`` turns one stored int8 cache leaf (document axis at 2,
-bucketed layout) back into model precision.  ``repro``'s wrapper pads,
-transposes and reshapes the leaf to the TPU kernel's ``(G, rows, cols)``
+``dequantize_leaves`` turns the stored int8 cache leaves of one segment
+(document axis at 2, bucketed layout) back into model precision in one
+launch; ``dequantize_leaf`` is its one-leaf case.  ``repro``'s wrapper pads,
+transposes and reshapes each leaf to the TPU kernel's ``(G, rows, cols)``
 block layout and slices and casts the result; the CUDA kernel reads the
-leaf and its scales in place and writes the model dtype, so nothing here
-moves data.  ``dequantize_blocks`` keeps the TPU kernel's own interface.
+leaves and their scales in place and writes the model dtype, so nothing
+here moves data.  ``dequantize_blocks`` keeps the TPU kernel's own
+interface.
 
 Routing: a CUDA tensor launches the kernel, a CPU tensor runs the plain
 version (:mod:`.ref`); see :mod:`repro_torch.kernels.common`.
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.kernels.common import uses_kernel
 
-from .kernel import dequant_cuda, leaf_layout
+from .kernel import MAX_LEAVES, dequant_cuda, segment_layout
 from .ref import dequant_blocks_ref, dequantize_leaf_ref
 
 
@@ -25,25 +27,47 @@ def _torch_dtype(dtype) -> torch.dtype:
     return dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
 
 
+def _one(values, n: int, what: str):
+    """The single value of one value per leaf, which must all agree (one
+    launch takes one block size and one output dtype)."""
+    if len(values) != n or len(set(values)) != 1:
+        raise ValueError(f"a segment's leaves take one {what}; got {list(values)}")
+    return values[0]
+
+
 def dequantize_blocks(q, scales):
     """``q (G, rows, cols)`` int8 × ``scales (G,)`` → fp32."""
     if not uses_kernel(q):
         return dequant_blocks_ref(q, scales)
     g, rows, cols = q.shape
-    return dequant_cuda(q, scales, d01=g, S=rows, H=1, cols=cols, nb=1,
-                        block=rows, dtype=torch.float32)
+    return dequant_cuda([(q, scales, (g, rows, 1, cols, 1))], block=rows,
+                        dtype=torch.float32)[0]
+
+
+def dequantize_leaves(leaves, *, block, dtype) -> list:
+    """Dequantize the stored int8 cache leaves of one segment, in one launch.
+
+    ``leaves`` is ``[(q, scale), …]``, at most :data:`MAX_LEAVES`, where
+    ``scale`` is the per-block scale tensor ``quantize_leaf`` produced:
+    ``(d0, d1, nb[, heads])`` for ``nb`` seq chunks of ``block`` rows.
+    ``block`` and ``dtype`` are one value, or one per leaf that all agree;
+    mixed ones are refused.
+    """
+    if not 0 < len(leaves) <= MAX_LEAVES:
+        raise ValueError(f"a segment call takes 1 to {MAX_LEAVES} leaves; got "
+                         f"{len(leaves)}")
+    if isinstance(block, (list, tuple)):
+        block = _one(block, len(leaves), "block size")
+    if isinstance(dtype, (list, tuple)):
+        dtype = _one([_torch_dtype(d) for d in dtype], len(leaves), "output dtype")
+    dtype = _torch_dtype(dtype)
+    if not uses_kernel(leaves[0][0]):
+        return [dequantize_leaf_ref(q, s, block=block, dtype=dtype) for q, s in leaves]
+    return dequant_cuda([(q, s, segment_layout(q.shape, s.shape[2], block))
+                         for q, s in leaves], block=block, dtype=dtype)
 
 
 def dequantize_leaf(q, scale, *, block: int, dtype):
-    """Dequantize one stored int8 cache leaf back to ``dtype``.
-
-    ``scale`` is the per-block scale tensor ``quantize_leaf`` produced:
-    ``(d0, d1, nb[, heads])`` for ``nb`` seq chunks of ``block`` rows.
-    """
-    dtype = _torch_dtype(dtype)
-    if not uses_kernel(q):
-        return dequantize_leaf_ref(q, scale, block=block, dtype=dtype)
-    nb = scale.shape[2]
-    d01, s, h, cols = leaf_layout(tuple(q.shape), nb, block)
-    return dequant_cuda(q, scale, d01=d01, S=s, H=h, cols=cols, nb=nb,
-                        block=block, dtype=dtype)
+    """Dequantize one stored int8 cache leaf back to ``dtype``: the one-leaf
+    case of :func:`dequantize_leaves`."""
+    return dequantize_leaves([(q, scale)], block=block, dtype=dtype)[0]

@@ -244,10 +244,13 @@ def test_wrappers_reject_bad_inputs(hopper):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [1, 3, 10, 15, 16, 127, 130])    # narrow: d + 1 <= 16
-@pytest.mark.parametrize("n", [64, 513, 2048, 70_000])
-def test_linreg_kernel_matches_plain(hopper, dtype, d, n):
-    X = _randn((n, d), dtype, hopper, 20)
-    y = _randn((n,), dtype, hopper, 21)
+@pytest.mark.parametrize("n", [1, 3, 64, 513, 2048, 50_000, 70_000])
+@pytest.mark.parametrize("lo", [0, 1], ids=["row0", "odd_row"])
+def test_linreg_kernel_matches_plain(hopper, dtype, d, n, lo):
+    """``lo`` 1: X and y are views from row 1 of their tables, as the
+    engine's fetches are (X off a 16-byte boundary, y off 8)."""
+    X = _randn((lo + n, d), dtype, hopper, 20)[lo:]
+    y = _randn((lo + n,), dtype, hopper, 21)[lo:]
     before = linreg_kernel.KERNEL.launches
     A, B, yty = linreg_ops.linreg_stats(X, y, with_yty=True)
     torch.cuda.synchronize()
@@ -268,6 +271,57 @@ def test_linreg_kernel_bitwise_repeatable(hopper):
     again = linreg_ops.linreg_stats(X, y, with_yty=True)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def _device_kernels(fn, calls: int = 5) -> float:
+    """Device kernels per call of ``fn``, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):                  # the first profile warms the tracer up
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
+@pytest.mark.parametrize("n", [3, 50_000, 5_000_000])
+def test_linreg_narrow_form_is_one_launch(hopper, n):
+    X = _randn((n, 10), torch.float32, hopper, 42)
+    y = _randn((n,), torch.float32, hopper, 43)
+    before = linreg_kernel.KERNEL.launches
+    linreg_ops.zt_z(X, y)
+    assert linreg_kernel.KERNEL.launches == before + 1
+    assert _device_kernels(lambda: linreg_ops.zt_z(X, y)) == 1
+
+
+@pytest.mark.parametrize("n,lo", [(50_000, 0), (50_000, 1), (5_000_000, 3)])
+def test_linreg_ticket_returns_to_zero(hopper, n, lo):
+    """100 launches back to back, and launches on two streams interleaved,
+    give bitwise the first launch's G: the ticket is reset by every launch
+    and each stream has its own."""
+    X = _randn((lo + n, 10), torch.float32, hopper, 44)[lo:]
+    y = _randn((lo + n,), torch.float32, hopper, 45)[lo:]
+    first = linreg_ops.zt_z(X, y)
+    runs = [linreg_ops.zt_z(X, y) for _ in range(100)]
+    side = torch.cuda.Stream(hopper)
+    X2, y2 = X[: n // 2], y[: n // 2]
+    half = linreg_ops.zt_z(X2, y2)
+    torch.cuda.synchronize()
+    mixed = []
+    for _ in range(10):
+        with torch.cuda.stream(side):
+            mixed.append(("side", linreg_ops.zt_z(X2, y2)))
+        mixed.append(("main", linreg_ops.zt_z(X, y)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(G, first) for G in runs)
+    for which, G in mixed:
+        assert torch.equal(G, half if which == "side" else first), which
+    assert torch.equal(first, first.T)
 
 
 @pytest.mark.parametrize("n_classes", [2, 3, 13])
@@ -372,6 +426,33 @@ def test_quant_kv_kernel_matches_plain_bitwise(hopper, shape, block, dtype):
     assert torch.equal(out, want)
     cpu = quant_ops.dequantize_leaf(q.cpu(), s.cpu(), block=block, dtype=dtype)
     assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("leaves,block", [
+    ([(24, 1, 128, 8, 128)] * 2, 64),                      # a full-width segment
+    ([(2, 1, 24, 3, 16), (2, 1, 20, 3, 24)], 8),           # vector and scalar leaves
+    ([(1, 2, 33, 2, 128), (3, 1, 17, 24), (2, 1, 40, 16), (2, 1, 40, 2, 3, 8),
+      (2, 1, 24, 3, 16), (1, 2, 33, 2, 128), (2, 1, 20, 3, 24), (3, 1, 9, 4)], 16),
+])
+def test_quant_kv_segment_is_one_launch_and_bitwise(hopper, leaves, block, dtype):
+    from repro_torch.core.quant import quantize_leaf
+
+    qs = []
+    for i, shape in enumerate(leaves):
+        x = _randn(shape, torch.float32, hopper, 50 + i) * 3
+        x[:, :, :block] = 0                        # an all-zero block
+        qs.append(quantize_leaf(x, block))
+    before = quant_kernel.KERNEL.launches
+    outs = quant_ops.dequantize_leaves(qs, block=block, dtype=dtype)
+    torch.cuda.synchronize()
+    assert quant_kernel.KERNEL.launches == before + 1
+    for (q, s), out in zip(qs, outs):
+        assert out.dtype == dtype and out.shape == q.shape
+        assert out.data_ptr() % 16 == 0
+        assert torch.equal(out, dequantize_leaf_ref(q, s, block=block, dtype=dtype))
+    assert _device_kernels(lambda: quant_ops.dequantize_leaves(qs, block=block,
+                                                               dtype=dtype)) == 1
 
 
 def test_quant_kv_blocks_layout_and_bad_inputs(hopper):
