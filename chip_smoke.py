@@ -60,16 +60,24 @@ Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
 versions at ``repro``'s sweep shapes with ``tests/test_kernels.py``'s
 tolerances, shows that two launches on the same data agree bitwise, and
-times them at the analytics path's shapes.  ``linreg_stats`` (50K and 5M x
-10) and ``quant_kv`` (a stored segment of two 128-token, then 4096-token
-leaves, through ``dequantize_tree``) are timed three ways: the call
-(``Timer``), the device (every profiled device activity of one call, and
-how many there are) and the host (the wrapper's enqueue time over 200
-calls); each must take one launch and one device kernel per call (per
-segment), and ``linreg_stats`` must give bitwise the same G 20 times over,
-on views from row 0 and from an odd row, and with a second stream's calls
-interleaved.  Phase 6 needs one ``quant_kv`` launch per dequantized
-segment, phase 8 one ``linreg_stats`` launch per statistics pass.
+times them at the analytics path's shapes.  ``linreg_stats`` and
+``nb_stats`` (50K and 5M x 10), ``logreg_sgd`` (segments of 1, 5 and 500
+chunks of 10K x 10) and ``quant_kv`` (a stored segment of two 128-token,
+then 4096-token leaves, through ``dequantize_tree``) are timed three ways:
+the call (``Timer``), the device (every profiled device activity of one
+call, and how many there are) and the host (the wrapper's enqueue time
+over 200 calls).  ``linreg_stats``, ``nb_stats`` and ``quant_kv`` must
+take one launch and one device kernel per call (per segment), and
+``linreg_stats`` and ``nb_stats`` must give bitwise the same G 20 times
+over, on views from row 0 and from odd rows, and with a second stream's
+calls interleaved.  ``logreg_sgd`` fits a segment (1, 5 and 500 chunks and
+a ragged tail) in one launch, within tolerance of its plain version, with
+every chunk checked bitwise equal to the same chunk fitted alone, from
+int32 and fp32 labels, and from a view at row 1, a copy at row 0 and a
+copy 4 bytes past an 8-byte boundary.  Phase 6 needs one
+``quant_kv`` launch per dequantized segment, phase 8 one launch of each
+statistics kernel per statistics pass of its family (for logreg: per
+segment fit, i.e. per uncovered step, baseline query and warm-up model).
 
 Any failure exits non-zero.  The last two lines are the ``nvidia-smi``
 line and ``{"ok": true, "device": {...}}``; the line before them lists
@@ -374,23 +382,38 @@ def normwise(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
+#: torch.profiler sessions of this run, warm-up and measured, and those of
+#: each kind that traced a count of device activities that is not a whole
+#: number per call (a lost event): main prints the tally
+PROFILE_SESSIONS = {"warm-up": [0, 0], "measured": [0, 0]}
+
+
 def device_profile(fn, kernel: str = "", launches: int = 20) -> tuple[float, float]:
     """Mean device time of one call of ``fn`` summed over the device
     activities (kernels, copies) whose name holds ``kernel``, and how many
-    of them one call runs, from ``torch.profiler`` (no host time in it)."""
+    of them one call runs, from ``torch.profiler`` (no host time in it).
+    Two sessions of ``launches`` calls: the first warms the tracer up, the
+    second is the reading, whole or not; both are tallied in
+    ``PROFILE_SESSIONS``.  A trace can miss a kernel that ran
+    (``kernels/profiler_count.py``), so the one-launch checks count what a
+    call enqueues with ``kernels.common.enqueued`` instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(launches):
-            fn()
+    for role in PROFILE_SESSIONS:
+        fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in events)
+        PROFILE_SESSIONS[role][0] += 1
+        PROFILE_SESSIONS[role][1] += count % launches != 0
     return (sum(e.self_device_time_total for e in events) / 1e3 / launches,
-            sum(e.count for e in events) / launches)
+            count / launches)
 
 
 def device_ms(fn, kernel: str, launches: int = 20) -> float:
@@ -436,9 +459,11 @@ def library_time(timer, fn, label):
 
 def linreg_onepass_checks(dev, X, y) -> None:
     """The narrow form at the query's and the table's shape: one launch per
-    call (launch counter and profiler), bitwise repeatable on views from
-    row 0 and from an odd row, and undisturbed by a second stream's calls
-    interleaved with the first's (each stream has its own ticket)."""
+    call (launch counter) and nothing else enqueued (a CUDA graph of the
+    call), bitwise repeatable on views from row 0 and from an odd row, and
+    undisturbed by a second stream's calls interleaved with the first's
+    (each stream has its own ticket)."""
+    from repro_torch.kernels.common import enqueued
     from repro_torch.kernels.linreg_stats import kernel as lk
     from repro_torch.kernels.linreg_stats.ops import zt_z
 
@@ -450,14 +475,14 @@ def linreg_onepass_checks(dev, X, y) -> None:
         before = lk.KERNEL.launches
         ref[label] = zt_z(Xv, yv)
         launches = lk.KERNEL.launches - before
-        _, kernels = device_profile(lambda: zt_z(Xv, yv))
+        ops = enqueued(lambda: zt_z(Xv, yv))
         again = [zt_z(Xv, yv) for _ in range(20)]
         torch.cuda.synchronize()
         same = all(torch.equal(G, ref[label]) for G in again)
         print(f"  linreg_stats {label} x {X.shape[1]}: {launches} launch per call, "
-              f"{kernels:g} device kernel per call; 20 more calls bitwise equal: {same}")
-        check(launches == 1 and kernels == 1, f"linreg_stats at {label}: {launches} "
-                                              f"launches, {kernels} kernels per call")
+              f"enqueues {ops} per call; 20 more calls bitwise equal: {same}")
+        check(launches == 1 and ops == {"kernel": 1}, f"linreg_stats at {label}: "
+                                                      f"{launches} launches, enqueues {ops}")
         check(same, f"linreg_stats is not bitwise repeatable at {label}")
     side = torch.cuda.Stream(dev)
     labels = list(views)
@@ -536,8 +561,71 @@ def linreg_stats_phase(dev, timer) -> dict:
             "max_abs_err": err[torch.float32], "shape": f"n 50000 d {d} fp32"}
 
 
+def nb_onepass_checks(dev, X, y, c) -> float:
+    """One launch per call (launch counter) and nothing else enqueued (a CUDA
+    graph of the call) at the query's and the table's shape, on views from
+    row 0 and from odd rows (whose X starts off
+    a 16-byte boundary at d 10, so the staged spans have element heads and
+    tails): counts exact and S, SS within tolerance of the plain version on
+    the same view (rtol 1e-4, atol 1e-3 / 1e-2 per 1024 rows), bitwise
+    repeatable, and undisturbed by a second stream's calls interleaved with
+    the first's (each stream has its own ticket).  Returns the largest
+    error against the plain version."""
+    from repro_torch.kernels.common import enqueued
+    from repro_torch.kernels.nb_stats import kernel as nk
+    from repro_torch.kernels.nb_stats.ops import grouped_stats
+    from repro_torch.kernels.nb_stats.ref import grouped_stats_ref
+
+    n = X.shape[0]
+    views = {f"{m} rows from row {lo}": (X[lo:lo + m], y[lo:lo + m])
+             for m, lo in ((50_000, 0), (50_000, 1), (n, 0), (n - 3, 3))}
+    d = X.shape[1]
+    ref, err = {}, 0.0
+    for label, (Xv, yv) in views.items():
+        before = nk.KERNEL.launches
+        ref[label] = G = grouped_stats(Xv, yv, c)
+        launches = nk.KERNEL.launches - before
+        want = grouped_stats_ref(Xv, yv, c)
+        torch.cuda.synchronize()
+        counts = torch.equal(G[:, 0], want[:, 0])
+        scale = max(1.0, Xv.shape[0] / 1024)
+        errs = []
+        for name, cols, atol in (("S", slice(1, 1 + d), 1e-3), ("SS", slice(1 + d, None), 1e-2)):
+            ok, e = within(G[:, cols], want[:, cols], 1e-4, atol * scale)
+            check(ok, f"nb_stats disagrees with its plain version at {label} ({name}, "
+                      f"max err {e})")
+            errs.append(e)
+        err = max(err, *errs)
+        ops = enqueued(lambda: grouped_stats(Xv, yv, c))
+        again = [grouped_stats(Xv, yv, c) for _ in range(20)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(G, ref[label]) for G in again)
+        print(f"  nb_stats {label} x {d}, C {c}: {launches} launch per call, "
+              f"enqueues {ops} per call; vs plain: counts exact {counts}, "
+              f"max |err| S {errs[0]:.3g}, SS {errs[1]:.3g}; 20 more calls bitwise "
+              f"equal: {same}")
+        check(counts, f"nb_stats counts differ from the plain version's at {label}")
+        check(launches == 1 and ops == {"kernel": 1}, f"nb_stats at {label}: "
+                                                      f"{launches} launches, enqueues {ops}")
+        check(same, f"nb_stats is not bitwise repeatable at {label}")
+    side = torch.cuda.Stream(dev)
+    labels = list(views)
+    mixed = []
+    for i in range(12):
+        a, b = labels[i % 4], labels[(i + 1) % 4]
+        with torch.cuda.stream(side):
+            mixed.append((a, grouped_stats(*views[a], c)))
+        mixed.append((b, grouped_stats(*views[b], c)))
+    torch.cuda.synchronize()
+    same = all(torch.equal(G, ref[label]) for label, G in mixed)
+    print(f"  nb_stats on two streams, 24 calls interleaved: bitwise each view's "
+          f"single-stream result: {same}")
+    check(same, "a second stream's nb_stats calls disturbed the first's")
+    return err
+
+
 def nb_stats_phase(dev, timer) -> dict:
-    from repro_torch.kernels.nb_stats.ops import nb_stats
+    from repro_torch.kernels.nb_stats.ops import grouped_stats, nb_stats
     from repro_torch.kernels.nb_stats.ref import nb_stats_ref
 
     def labels(n, c, seed):
@@ -549,7 +637,7 @@ def nb_stats_phase(dev, timer) -> dict:
     err = 0.0
     for c in (2, 13):
         for d in (10, 129):
-            for n in (1024, 70_000):
+            for n in (1024, 50_000, 70_000):
                 X = randn((n, d), torch.float32, dev, 44)
                 y = labels(n, c, 45)
                 got = nb_stats(X, y, c)
@@ -563,7 +651,7 @@ def nb_stats_phase(dev, timer) -> dict:
                     check(ok, f"nb_stats disagrees with its plain version (C {c}, "
                               f"d {d}, n {n}, {name}, max err {e})")
                     err = max(err, e)
-    print(f"  nb_stats C 2/13 x d 10/129 x n 1024/70000: counts exact, max |err| "
+    print(f"  nb_stats C 2/13 x d 10/129 x n 1024/50000/70000: counts exact, max |err| "
           f"{err:.3g} (rtol 1e-4, atol 1e-3/1e-2 per 1024 rows)")
 
     n, d, c = 5_000_000, 10, 2
@@ -585,30 +673,84 @@ def nb_stats_phase(dev, timer) -> dict:
     check(torch.equal(first[0], plain[0]) and nerr <= SUM_NORMWISE,
           "nb_stats strays from the float64 statistics at 5M x 10")
     del onehot, Xd
+    err = max(err, nb_onepass_checks(dev, X, y, c))
 
     rows = {}
-    for m in (n, 50_000):
+    for m in (50_000, n):
         Xm, ym = X[:m], y[:m]
         G = torch.cat([torch.ones((m, 1), device=dev), Xm, Xm * Xm], 1)[ym >= 0]
         y64 = ym[ym >= 0].long()
-        rows[m] = (timer.ms(lambda: nb_stats(Xm, ym, c)),
-                   timer.ms(lambda: nb_stats_ref(Xm, ym, c)),
-                   library_time(timer, lambda: torch.zeros((c, 1 + 2 * d), device=dev)
-                                .index_add_(0, y64, G), "nb_stats"),
-                   *bound(m * (3.0 * d + 1), 4.0 * (m * (d + 1) + c * (1 + 2 * d)),
-                          torch.float32))
-        print(f"  nb_stats {m} x {d} fp32, C {c}: kernel {rows[m][0]:.4f} ms, bound "
-              f"{rows[m][3]:.4f} ms ({rows[m][4]}), plain {rows[m][1]:.4f} ms, "
-              f"library index_add_ {rows[m][2]} ms")
-    ms, plain_ms, library_ms, bound_ms, bound_by = rows[n]
-    return {"name": "nb_stats", "ms": ms, "plain_ms": plain_ms,
+        t = call_split(timer, lambda: grouped_stats(Xm, ym, c))
+        lib = call_split(timer, lambda: torch.zeros((c, 1 + 2 * d), device=dev)
+                         .index_add_(0, y64, G))
+        plain_ms = timer.ms(lambda: nb_stats_ref(Xm, ym, c))
+        bound_ms, bound_by = bound(m * (3.0 * d + 1), 4.0 * (m * (d + 1) + c * (1 + 2 * d)),
+                                   torch.float32)
+        rows[m] = t, plain_ms, lib["call"], bound_ms, bound_by
+        print(f"  nb_stats {m} x {d} fp32, C {c}: kernel (grouped_stats, the path's call) "
+              f"{split_line(t)}; bound {bound_ms:.4f} ms ({bound_by}), plain "
+              f"{plain_ms:.4f} ms, library index_add_ {split_line(lib)}")
+    t, plain_ms, library_ms, bound_ms, bound_by = rows[50_000]
+    return {"name": "nb_stats", "ms": t["call"], "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err, "shape": f"n {n} d {d} C {c} fp32"}
+            "max_abs_err": err, "shape": f"n 50000 d {d} C {c} fp32"}
+
+
+def logreg_segment_checks(dev, X, y, l, batch) -> float:
+    """The segment form at 1, 5 and 500 chunks, each with a ragged last
+    chunk: one launch per segment, within tolerance of the plain version
+    (1 and 5 chunks), every chunk checked bitwise equal to the same chunk
+    fitted alone (1 and 5; chunks 0, 250, 499 and the tail at 500), from
+    int32 and fp32 labels and from the same rows as a view at row 1, a copy
+    at row 0 and a copy 4 bytes past an 8-byte boundary.  Returns the
+    largest error against the plain version."""
+    from repro_torch.kernels.logreg_sgd import kernel as sk
+    from repro_torch.kernels.logreg_sgd.ops import logreg_sgd, logreg_sgd_segment
+
+    err = 0.0
+    for p in (1, 5, 500):
+        n = p * l + 4_321                                 # a ragged last chunk
+        word1 = torch.empty(n * X.shape[1] + 1, device=dev)[1:].view(n, X.shape[1])
+        word1.copy_(X[1:n + 1])
+        views = {"view at row 1": (X[1:n + 1], y[1:n + 1]),
+                 "copy at row 0": (X[1:n + 1].clone(), y[1:n + 1].clone()),
+                 "copy 4 bytes past an 8-byte boundary": (word1, y[1:n + 1])}
+        got = {}
+        for label, (Xv, yv) in views.items():
+            before = sk.KERNEL.launches
+            W = logreg_sgd_segment(Xv, yv, chunk_size=l, batch=batch)
+            launches = sk.KERNEL.launches - before
+            Wf = logreg_sgd_segment(Xv, yv.float(), chunk_size=l, batch=batch)
+            chunks = range(p + 1) if p < 500 else (0, 250, 499, 500)
+            alone = [logreg_sgd(Xv[k * l:(k + 1) * l], yv[k * l:(k + 1) * l], batch=batch)
+                     for k in chunks]
+            torch.cuda.synchronize()
+            same = torch.equal(W, Wf) and all(torch.equal(a, W[k]) for a, k in zip(alone, chunks))
+            check(launches == 1, f"logreg_sgd: {launches} launches for a segment of {p + 1} chunks")
+            check(same, f"logreg_sgd: a chunk alone differs from the same chunk in a "
+                        f"segment of {p + 1} ({label}), or int32 and fp32 labels differ")
+            got[label] = W
+        if p < 500:
+            Xv, yv = views["view at row 1"]
+            want = logreg_sgd_segment(Xv.cpu(), yv.cpu(), chunk_size=l, batch=batch).to(dev)
+            ok, e = within(got["view at row 1"], want, 2e-4, 2e-5)
+            check(ok, f"logreg_sgd segment of {p + 1} chunks disagrees with its plain "
+                      f"version (max err {e})")
+            err = max(err, e)
+        first = next(iter(got.values()))
+        same = all(torch.equal(first, W) for W in got.values())
+        print(f"  logreg_sgd segment of {p} x {l} + 4321 rows ({p + 1} chunks), x "
+              f"{X.shape[1]}, batch {batch}: 1 launch; every chunk checked bitwise equal "
+              f"alone and in the segment, int32 = fp32 labels, the same bits from a view "
+              f"at row 1, a copy at row 0 and one 4 bytes off: {same}"
+              + (f"; max |err| vs plain {e:.3g}" if p < 500 else ""))
+        check(same, "logreg_sgd depends on the row offset of its view")
+    return err
 
 
 def logreg_sgd_phase(dev, timer) -> dict:
     from repro_torch.kernels.common import pad_axis, round_up
-    from repro_torch.kernels.logreg_sgd.ops import logreg_sgd_batched
+    from repro_torch.kernels.logreg_sgd.ops import logreg_sgd_batched, logreg_sgd_segment
     from repro_torch.kernels.logreg_sgd.ref import sgd_chunks_ref
 
     def plain(X, y, batch, lr):
@@ -650,24 +792,30 @@ def logreg_sgd_phase(dev, timer) -> dict:
           f"of {l} x {d}: max |err| {err:.3g} (rtol 2e-4, atol 2e-5); two launches "
           f"bitwise equal: {same}")
     check(same, "logreg_sgd is not bitwise repeatable")
+    Xs, ys = X.reshape(p * l, d), y.reshape(p * l).to(torch.int32)
+    Xs = torch.cat([Xs, Xs[:4_322]])                     # room for the ragged tails
+    ys = torch.cat([ys, ys[:4_322]])
+    err = max(err, logreg_segment_checks(dev, Xs, ys, l, batch))
 
     rows = {}
     steps = -(-l // batch)
-    for q in (1, p):
-        Xq, yq = X[:q], y[:q]
-        rows[q] = (timer.ms(lambda: logreg_sgd_batched(Xq, yq, lam=1e-3, lr=0.5, batch=batch)),
-                   timer.ms(lambda: plain(Xq, yq, batch, 0.5), iters=5),
-                   None,
-                   *bound(q * (l * (4.0 * d + 6) + steps * 6.0 * d),
-                          4.0 * q * (l * (d + 1) + d + 1), torch.float32))
-        print(f"  logreg_sgd {q} chunk(s) of {l} x {d}, batch {batch}: kernel "
-              f"{rows[q][0]:.4f} ms, bound {rows[q][3]:.6f} ms ({rows[q][4]}), "
-              f"{steps} dependent steps per chunk, plain {rows[q][1]:.4f} ms, "
+    for q in (1, 5, p):                  # a chunk, the 50K-row query, the table
+        m = q * l
+        Xq, yq = Xs[:m], ys[:m]
+        t = call_split(timer, lambda: logreg_sgd_segment(Xq, yq, chunk_size=l, batch=batch))
+        plain_ms = timer.ms(lambda: plain(X[:q], y[:q], batch, 0.5), iters=5)
+        bound_ms, bound_by = bound(m * (4.0 * d + 6) + q * steps * 6.0 * d,
+                                   4.0 * (m * (d + 1) + q * (d + 1)), torch.float32)
+        rows[q] = t, plain_ms, None, bound_ms, bound_by
+        print(f"  logreg_sgd segment of {q} chunk(s) of {l} x {d}, batch {batch} "
+              f"(int32 labels): kernel {split_line(t)}; bound {bound_ms:.6f} ms "
+              f"({bound_by}), {steps} dependent steps per chunk, plain {plain_ms:.4f} ms, "
               f"no library call")
-    ms, plain_ms, library_ms, bound_ms, bound_by = rows[1]
-    return {"name": "logreg_sgd", "ms": ms, "plain_ms": plain_ms,
+    t, plain_ms, library_ms, bound_ms, bound_by = rows[5]
+    return {"name": "logreg_sgd", "ms": t["call"], "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": err, "shape": f"1 chunk l {l} d {d} batch {batch} fp32"}
+            "max_abs_err": err,
+            "shape": f"segment of 5 chunks l {l} d {d} batch {batch} fp32"}
 
 
 def quant_kv_phase(dev, timer) -> dict:
@@ -675,6 +823,7 @@ def quant_kv_phase(dev, timer) -> dict:
     fp32 multiply, one rounding to the output type), then timed on a
     stored segment of the full-width path."""
     from repro_torch.core.quant import dequantize_tree, quantize_leaf, quantize_tree
+    from repro_torch.kernels.common import enqueued
     from repro_torch.kernels.quant_kv import kernel as qk
     from repro_torch.kernels.quant_kv.ops import dequantize_leaf
     from repro_torch.kernels.quant_kv.ref import dequantize_leaf_ref
@@ -726,10 +875,11 @@ def quant_kv_phase(dev, timer) -> dict:
         call()
         launches = qk.KERNEL.launches - before
         t = call_split(timer, call)
+        ops = enqueued(call)
         print(f"  quant_kv segment of S {S}: bitwise equal to the plain version; "
-              f"{launches} launch per segment, {t['kernels']:g} device kernel per segment")
-        check(launches == 1 and t["kernels"] == 1,
-              f"quant_kv took {launches} launches, {t['kernels']} kernels for one segment")
+              f"{launches} launch per segment, enqueues {ops} per segment")
+        check(launches == 1 and ops == {"kernel": 1},
+              f"quant_kv took {launches} launches and enqueued {ops} for one segment")
         lib = call_split(timer, lambda: torch.mul(qs, ss))
         plain_ms = timer.ms(lambda: {k: dequantize_leaf_ref(q, meta.scales[str(j)], block=block,
                                                             dtype=torch.bfloat16)
@@ -1344,6 +1494,8 @@ def analytics_main_path(dev) -> dict:
     card, against ``baseline`` on the same queries."""
     from repro_torch.configs.paper import PAPER_WORKLOAD as P
     from repro_torch.core import linreg as core_linreg
+    from repro_torch.core import logreg as core_logreg
+    from repro_torch.core import naive_bayes as core_nb
     from repro_torch.kernels.linreg_stats import kernel as lk
     from repro_torch.kernels.logreg_sgd import kernel as sk
     from repro_torch.kernels.nb_stats import kernel as nk
@@ -1364,29 +1516,40 @@ def analytics_main_path(dev) -> dict:
     kernels = {"linreg_stats": lk.KERNEL, "nb_stats": nk.KERNEL, "logreg_sgd": sk.KERNEL}
     for k in kernels.values():
         k.launches = 0
-    # count linreg's statistics passes over tensors (each a kernel call)
-    passes = {"linreg": 0}
-    compute_stats = core_linreg.compute_stats
+    # count each family's statistics passes over tensors (each one kernel
+    # call): linreg's, Gaussian NB's, and logreg's segment fits (an
+    # uncovered step, a baseline query or a warm-up model)
+    passes = {"linreg": 0, "gaussian_nb": 0, "logreg": 0}
+    hooks = ((core_linreg, "compute_stats", "linreg"),
+             (core_nb, "compute_gaussian_stats", "gaussian_nb"),
+             (core_logreg, "fit_chunks", "logreg"))
+    originals = [getattr(module, fn) for module, fn, _ in hooks]
 
-    def counted(X, y):
-        passes["linreg"] += isinstance(X, torch.Tensor)
-        return compute_stats(X, y)
+    def counted(fn, family):
+        def wrapper(X, y, *args, **kwargs):
+            passes[family] += isinstance(X, torch.Tensor)
+            return fn(X, y, *args, **kwargs)
+        return wrapper
 
-    core_linreg.compute_stats = counted
+    for (module, fn, family), original in zip(hooks, originals):
+        setattr(module, fn, counted(original, family))
     try:
         analytics_families(dev, tables, kernels, n, n_queries, P)
     finally:
-        core_linreg.compute_stats = compute_stats
+        for (module, fn, _), original in zip(hooks, originals):
+            setattr(module, fn, original)
     counts = {name: k.launches for name, k in kernels.items()}
     mem = torch.cuda.max_memory_allocated(dev)
     print(f"  analytics main-path launches: {counts}; max memory allocated "
           f"{mem / 2**20:.0f} MiB (resident tables {resident / 2**20:.0f} MiB)")
-    print(f"  linreg statistics passes over the card's tables: {passes['linreg']}, "
-          f"linreg_stats launches: {counts['linreg_stats']} (one per pass)")
     check(all(v > 0 for v in counts.values()),
           f"a statistics kernel was not launched on the analytics path: {counts}")
-    check(counts["linreg_stats"] == passes["linreg"],
-          "linreg_stats launched other than once per statistics pass")
+    for family, name in (("linreg", "linreg_stats"), ("gaussian_nb", "nb_stats"),
+                         ("logreg", "logreg_sgd")):
+        print(f"  {family} statistics passes over the card's tables: {passes[family]}, "
+              f"{name} launches: {counts[name]} (one per pass)")
+        check(counts[name] == passes[family],
+              f"{name} launched other than once per {family} statistics pass")
     check(mem >= resident, "max memory allocated does not cover the resident tables")
     return counts
 
@@ -1540,6 +1703,9 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
                for r in rows]
+    print("[profiler] sessions with a count of device activities that is not a "
+          "whole number per call: " + ", ".join(
+              f"{role} {partial} of {n}" for role, (n, partial) in PROFILE_SESSIONS.items()))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,7 +16,7 @@ has no kernel: its tensor fetches are copied to the host.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -43,6 +43,10 @@ class ModelFamily:
     stats_bytes: Callable[[int, dict], int]
     #: default hyper-parameters
     defaults: dict = field(default_factory=dict)
+    #: (X, y, params) → one Combinable per chunk of ``params["chunk_size"]``
+    #: rows, in row order — for families whose unit of materialization is
+    #: the chunk model (§4); None for the families that do not chunk
+    fit_chunks: Optional[Callable[[Any, Any, dict], list]] = None
 
 
 def _linreg_stats(X, y, params):
@@ -59,15 +63,16 @@ def _mnb_stats(X, y, params):
     return MultinomialNBStats.from_data(X, y, params["n_classes"])
 
 
+def _logreg_chunks(X, y, params):
+    return logreg.fit_chunks(X, y, int(params.get("chunk_size", 10_000)),
+                             lam=params.get("lam", 1e-3), lr=params.get("lr", 0.5))
+
+
 def _logreg_stats(X, y, params):
     """Fit the whole segment as chunk models of size l, combined (Alg 2)."""
-    l = int(params.get("chunk_size", 10_000))
-    lam = params.get("lam", 1e-3)
-    lr = params.get("lr", 0.5)
-    n = len(y)
     total = LogRegMixtureStats.zero(X.shape[1])
-    for s in range(0, n, l):
-        total = total + logreg.fit_chunk(X[s : s + l], y[s : s + l], lam=lam, lr=lr)
+    for cs in _logreg_chunks(X, y, params):
+        total = total + cs
     return total
 
 
@@ -107,6 +112,7 @@ FAMILIES: dict[str, ModelFamily] = {
         solve=lambda st, p: logreg.solve(st, lam=p.get("lam", 1e-3)),
         stats_bytes=lambda d, p: 8 * (d + 3),
         defaults={"lam": 1e-3, "lr": 0.5, "chunk_size": 10_000},
+        fit_chunks=_logreg_chunks,
     ),
 }
 

@@ -9,8 +9,9 @@ combining is exact *for the mixture*, deleting is not supported.
 ``mixture_bound`` computes the Theorem-1 deviation bound
 ``‖w_μ − w_SGD‖ ≤ (R√2/λ)(1/√l + 1/√|Dq|) + (2√2 R)/(λ√(p l)) · √log(1/δ)``.
 
-Mirrors ``repro.core.logreg``.  ``sgd_pass`` follows the data: numpy
-arrays take the float64 host loop, tensors the chunked SGD kernel.
+Mirrors ``repro.core.logreg``.  ``sgd_pass`` and ``fit_chunks`` follow the
+data: numpy arrays take the float64 host loop, tensors the chunked SGD
+kernel (``fit_chunks``: one launch for a whole segment's chunks).
 """
 from __future__ import annotations
 
@@ -98,6 +99,23 @@ def fit_chunk(X, y, lam: float = 1e-3, lr: float = 0.5) -> LogRegMixtureStats:
     """Materialize one chunk model (Alg 2 line 11)."""
     w = sgd_pass(X, y, lam=lam, lr=lr)
     return LogRegMixtureStats.from_chunk_weights(w, n_points=len(y))
+
+
+def fit_chunks(X, y, chunk_size: int, lam: float = 1e-3,
+               lr: float = 0.5) -> list[LogRegMixtureStats]:
+    """Materialize the chunk models of a segment (Alg 2 lines 9–11): chunk
+    c is rows ``[c·l, min((c+1)·l, n))``.  numpy arrays run the float64
+    host loop chunk by chunk (``repro``'s numpy path); a tensor fits every
+    chunk in one call of the chunked SGD kernel and comes to the host in
+    one copy."""
+    n, l = len(y), chunk_size
+    if not isinstance(X, torch.Tensor) or n == 0:
+        return [fit_chunk(X[s : s + l], y[s : s + l], lam=lam, lr=lr)
+                for s in range(0, n, l)]
+    W = k_ops.logreg_sgd_segment(X, y, chunk_size=l, lam=lam, lr=lr)
+    W = W.cpu().numpy().astype(np.float64)
+    return [LogRegMixtureStats.from_chunk_weights(w, n_points=min(l, n - k * l))
+            for k, w in enumerate(W)]
 
 
 def solve(stats: LogRegMixtureStats, lam: float = 1e-3) -> LogRegModel:

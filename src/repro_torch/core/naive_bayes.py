@@ -14,7 +14,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import to_host
 from repro_torch.kernels.nb_stats import ops as k_ops
 
 from .suffstats import GaussianNBStats, MultinomialNBStats
@@ -62,8 +61,12 @@ class MultinomialNBModel:
 
 def compute_gaussian_stats(X, y, n_classes: int) -> GaussianNBStats:
     if isinstance(X, torch.Tensor):
-        counts, S, SS = to_host(*k_ops.nb_stats(X.float(), y, n_classes))
-        return GaussianNBStats(counts=counts, S=S, SS=SS)
+        # G = [N_c | S_c | SS_c] comes to the host in one copy (which also
+        # waits for the device); counts, S and SS are its blocks
+        d = X.shape[1]
+        G = k_ops.grouped_stats(X.float(), y, n_classes).cpu().numpy().astype(np.float64)
+        return GaussianNBStats(counts=G[:, 0].copy(), S=G[:, 1:1 + d].copy(),
+                               SS=G[:, 1 + d:].copy())
     return GaussianNBStats.from_data(X, y, n_classes)
 
 

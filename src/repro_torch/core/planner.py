@@ -3,8 +3,9 @@
 A framework-free copy of ``repro.core.planner``.  ``execute`` turns an
 optimizer path into a solved model: group families combine/uncombine
 materialized statistics and scan only the base-data segments the plan asks
-for; monoid families (logreg) fit chunk models for uncovered segments
-(Alg 2 lines 9–11) and may materialize them for future queries.
+for; chunking families (logreg) fit chunk models for uncovered segments
+(Alg 2 lines 9–11), one ``fit_chunks`` call per segment, and may
+materialize them for future queries.
 ``plan_edit`` prices serving an edited document (reuse-prefix +
 rebuild-suffix).
 """
@@ -61,7 +62,6 @@ def execute(
     new_ids: list[str] = []
 
     chunk_size = int(params.get("chunk_size", 10_000))
-    monoid = not family.supports_delete
 
     # Chunk materialization below may trigger eviction; pin every model this
     # plan still has to read so a put cannot invalidate a later step
@@ -77,12 +77,12 @@ def execute(
                 X, y = backend.fetch(step.rng)
                 timings.io_s += time.perf_counter() - t0
                 t0 = time.perf_counter()
-                if monoid and materialize_chunks:
-                    # fit chunk-by-chunk and materialize each chunk (§4)
+                if family.fit_chunks is not None and materialize_chunks:
+                    # fit the step's chunks in one call, materialize each (§4)
                     stats = None
-                    for s in range(0, step.rng.size, chunk_size):
-                        sub = Range(step.rng.lo + s, min(step.rng.lo + s + chunk_size, step.rng.hi))
-                        cs = family.compute_stats(X[s : s + chunk_size], y[s : s + chunk_size], params)
+                    for k, cs in enumerate(family.fit_chunks(X, y, params)):
+                        lo = step.rng.lo + k * chunk_size
+                        sub = Range(lo, min(lo + chunk_size, step.rng.hi))
                         new_ids.append(store.put(family.name, sub, cs, meta={"chunked": True}))
                         stats = cs if stats is None else stats + cs
                 else:

@@ -5,10 +5,11 @@ compiled on its own into a shared library under ``build/repro_torch_kernels/``
 at the repository root (listed in ``.gitignore``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -I kernels/csrc -o <name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing is built at import
+``kernels/csrc/`` holds the headers the sources share.  The library name
+carries a hash of the source and of those headers, so an edited source or
+header is rebuilt and a stale library is never loaded.  Nothing is built at import
 time: :class:`CudaKernel` builds its library at first launch, and
 :func:`build_all` starts one ``nvcc`` per source at once (as a smoke run
 does before it touches the card).
@@ -24,6 +25,7 @@ import threading
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
+INCLUDE_DIR = KERNELS_DIR / "csrc"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -48,13 +50,20 @@ def nvcc_path() -> str:
     return found
 
 
+def headers() -> list[Path]:
+    """The headers the sources share, in a stable order."""
+    return sorted(INCLUDE_DIR.glob("*.cuh"))
+
+
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in headers():
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc_cmd(src: Path, out: Path) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(out), str(src)]
 
 
 def build_all(srcs=None) -> dict[str, str]:

@@ -99,6 +99,53 @@ class StreamWorkspace:
         return buf
 
 
+#: CUgraphNodeType (cuda.h): the kinds of operation a graph node holds
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+                    5: "empty", 6: "wait_event", 7: "event_record",
+                    8: "ext_semaphore_signal", 9: "ext_semaphore_wait",
+                    10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
+                    13: "conditional"}
+
+
+def enqueued(fn) -> dict[str, int]:
+    """What one call of ``fn`` enqueues on the current CUDA device, by kind
+    of operation (``{"kernel": 1}`` for a wrapper that launches its kernel
+    and nothing else), read from a CUDA graph captured around the call and
+    never replayed.  Exact where a profiler trace is not: a trace can miss
+    a kernel that ran (``kernels/profiler_count.py``).  ``fn`` runs once on
+    the capturing stream first, so the state a wrapper keeps per stream
+    (its workspace) exists before the capture."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+    libcuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    err = libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    if not err and count.value:
+        err = libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count))
+    kinds: dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        err = err or libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        name = GRAPH_NODE_KINDS.get(kind.value, f"type {kind.value}")
+        kinds[name] = kinds.get(name, 0) + 1
+    graph.reset()
+    if err:
+        raise RuntimeError(f"reading the captured graph failed: CUresult {err}")
+    return kinds
+
+
 def to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     """A kernel's small results as float64 numpy arrays, in one copy (which
     also waits for the device, so the caller's clock times real work)."""

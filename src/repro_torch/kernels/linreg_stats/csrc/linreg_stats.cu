@@ -72,13 +72,20 @@
 //
 // The launch goes on the caller's stream; the kernel allocates nothing (the
 // wrapper passes its per-stream workspace and the output).
+//
+// The staging, the halving and the ticket are kernels/csrc/onepass.cuh's,
+// shared with nb_stats.cu.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "onepass.cuh"
+
 namespace {
+
+using namespace onepass;
 
 constexpr int TILE = 32;      // wide form: output tile edge
 constexpr int ROWS = 64;      // wide form: rows staged in shared memory at once
@@ -96,97 +103,6 @@ __device__ __forceinline__ float load(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// one element of an unaligned head or tail
-__device__ __forceinline__ void copy_elem(void* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void copy_elem(void* dst, const __nv_bfloat16* src) {
-  *static_cast<__nv_bfloat16*>(dst) = *src;
-}
-
-// Stage the span g[0, count) into shared memory at s + (g mod 16), where s
-// is 16-byte aligned: 16-byte cp.async for the aligned units, element copies
-// for the head before the first and the tail after the last.  Every thread
-// of the block calls it; the caller commits and waits.
-template <typename T>
-__device__ __forceinline__ void stage_span(char* s, const T* g, int count) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
-  const uintptr_t e = a + (uintptr_t)count * sizeof(T);
-  const uintptr_t base = a & ~uintptr_t(15);
-  const uintptr_t up = (a + 15) & ~uintptr_t(15), down = e & ~uintptr_t(15);
-  const uintptr_t b0 = up < e ? up : e;          // end of the head
-  const uintptr_t b1 = down > b0 ? down : b0;    // start of the tail
-  const int units = (int)((b1 - b0) >> 4);
-  for (int u = threadIdx.x; u < units; u += NT)
-    cp_async16(s + (b0 - base) + 16 * u, reinterpret_cast<const void*>(b0 + 16 * u));
-  const int head = (int)((b0 - a) / sizeof(T));
-  const int tail = (int)((e - b1) / sizeof(T));
-  const int t = threadIdx.x;
-  char* s0 = s + (a - base);
-  if (t < head) {
-    copy_elem(s0 + t * sizeof(T), g + t);
-  } else if (NT - 1 - t < tail) {
-    const int k = count - tail + (NT - 1 - t);
-    copy_elem(s0 + k * sizeof(T), g + k);
-  }
-}
-
-// Sum C values (of an array of V >= C + 1) over the 32 lanes of a warp by
-// recursive halving, from lane offset O down to 1: at each level a lane
-// keeps one half of its slots (the upper one if its bit O is set), adds the
-// partner's matching half and sends the other, so a level costs ceil(C/2)
-// shuffles where a butterfly per value costs C (67 shuffles against 330 for
-// the 66 sums of d 10).  Slot i then holds global entry base + i, valid
-// while base + i < end (an odd count leaves one empty slot per level).  A
-// fixed tree: the same values give the same bits on every run.
-template <int V, int C, int O>
-__device__ __forceinline__ void halve(float (&v)[V], int lane, int& base, int& end) {
-  constexpr int LO = (C + 1) / 2;
-  const bool up = (lane & O) != 0;
-#pragma unroll
-  for (int i = 0; i < LO; ++i) {
-    const float a = v[i];
-    const float b = LO + i < C ? v[LO + i] : 0.f;  // slots >= C hold stale values
-    v[i] = (up ? b : a) + __shfl_xor_sync(0xffffffffu, up ? a : b, O);
-  }
-  if (up) {
-    base += LO;
-  } else {
-    end = min(end, base + LO);
-  }
-  if constexpr (O > 1) halve<V, LO, O / 2>(v, lane, base, end);
-}
-
-__device__ __forceinline__ unsigned ticket_add(unsigned* p) {
-  unsigned old;
-  // release: the block's partial, ordered before this by the barrier, is
-  // visible device-wide before the ticket moves; acquire: the block that
-  // draws the last ticket sees every partial after its own barrier
-  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
-               : "=r"(old) : "l"(p) : "memory");
-  return old;
-}
-
-constexpr int halved(int c, int levels) {
-  return levels == 0 ? c : halved((c + 1) / 2, levels - 1);
-}
 
 template <typename T, int D>
 struct Narrow {
@@ -223,8 +139,8 @@ ztz_narrow(const T* __restrict__ X, const T* __restrict__ y,
       const long long a = r0 + (long long)c * CH;
       const int rows = (int)min((long long)CH, r1 - a);
       char* st = ring + (c % S) * L::SB;
-      stage_span(st, X + a * d, rows * d);
-      stage_span(st + L::XB, y + a, rows);
+      stage_span<NT>(st, X + a * d, rows * d);
+      stage_span<NT>(st + L::XB, y + a, rows);
     }
     cp_async_commit();           // an empty group past the last chunk
   };

@@ -173,5 +173,5 @@ def test_cuda_wrappers_validate_before_launch():
     with pytest.raises(TypeError):
         nb_kernel.grouped_stats_cuda(X, torch.zeros(16), 2)
     with pytest.raises(TypeError):
-        logreg_kernel.sgd_chunks_cuda(X[None].double(), torch.zeros((1, 16)),
-                                      lam=1e-3, lr=0.5, batch=4)
+        logreg_kernel.sgd_segment_cuda(X.double(), torch.zeros(16), chunk_size=16,
+                                       lam=1e-3, lr=0.5, batch=4)

@@ -23,7 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.common import within_bf16_ulp  # noqa: E402
+from repro_torch.kernels.common import enqueued, within_bf16_ulp  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
@@ -273,20 +273,20 @@ def test_linreg_kernel_bitwise_repeatable(hopper):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def _device_kernels(fn, calls: int = 5) -> float:
-    """Device kernels per call of ``fn``, from ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def test_enqueued_reads_every_operation_of_a_call(hopper):
+    """The count the one-launch tests rest on: a CUDA graph of one call holds
+    each kernel, copy and memset it enqueued."""
+    x = torch.zeros(1024, device=hopper)
+    host = torch.ones(1024).pin_memory()
 
-    for _ in range(2):                  # the first profile warms the tracer up
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / calls
+    def three():
+        x.add_(1.0)
+        x.copy_(host, non_blocking=True)
+        x.zero_()
+
+    kinds = enqueued(three)
+    assert sum(kinds.values()) == 3 and kinds.get("memcpy") == 1
+    assert enqueued(lambda: linreg_ops.zt_z(x[:30].view(3, 10), x[30:33])) == {"kernel": 1}
 
 
 @pytest.mark.parametrize("n", [3, 50_000, 5_000_000])
@@ -296,7 +296,7 @@ def test_linreg_narrow_form_is_one_launch(hopper, n):
     before = linreg_kernel.KERNEL.launches
     linreg_ops.zt_z(X, y)
     assert linreg_kernel.KERNEL.launches == before + 1
-    assert _device_kernels(lambda: linreg_ops.zt_z(X, y)) == 1
+    assert enqueued(lambda: linreg_ops.zt_z(X, y)) == {"kernel": 1}
 
 
 @pytest.mark.parametrize("n,lo", [(50_000, 0), (50_000, 1), (5_000_000, 3)])
@@ -382,6 +382,99 @@ def test_logreg_kernel_batched_and_bitwise_repeatable(hopper):
         logreg_ops.logreg_sgd(X[0, :, :1], y[0], batch=60_000)
 
 
+@pytest.mark.parametrize("n,d", [(50_000, 10), (70_001, 5), (1_000_003, 10), (3_000, 64)])
+@pytest.mark.parametrize("lo", [0, 1, 3], ids=["row0", "row1", "row3"])
+def test_nb_kernel_one_launch_bitwise_repeatable(hopper, n, d, lo):
+    """One launch and one device kernel per call (narrow form at d 5 and 10,
+    C 2; wide at d 64), counts exact and S, SS within the plain version's
+    tolerance on views from row 0 and odd rows (whose X starts off a 16-byte
+    boundary: the staged spans' element heads and tails), and bitwise the
+    same G over 20 calls, and with a second stream's calls interleaved
+    (each stream has its own ticket)."""
+    X = _randn((lo + n, d), torch.float32, hopper, 50)[lo:]
+    g = torch.Generator(device=hopper).manual_seed(51)
+    y = torch.randint(-1, 2, (lo + n,), generator=g, device=hopper, dtype=torch.int32)[lo:]
+    before = nb_kernel.KERNEL.launches
+    first = nb_ops.grouped_stats(X, y, 2)
+    assert nb_kernel.KERNEL.launches == before + 1
+    assert enqueued(lambda: nb_ops.grouped_stats(X, y, 2)) == {"kernel": 1}
+    runs = [nb_ops.grouped_stats(X, y, 2) for _ in range(20)]
+    side = torch.cuda.Stream(hopper)
+    X2, y2 = X[1: n // 2], y[1: n // 2]
+    half = nb_ops.grouped_stats(X2, y2, 2)
+    torch.cuda.synchronize()
+    mixed = []
+    for _ in range(10):
+        with torch.cuda.stream(side):
+            mixed.append(("side", nb_ops.grouped_stats(X2, y2, 2)))
+        mixed.append(("main", nb_ops.grouped_stats(X, y, 2)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(G, first) for G in runs)
+    for which, G in mixed:
+        assert torch.equal(G, half if which == "side" else first), which
+    scale = max(1.0, n / 1024)
+    for G, (Xv, yv) in ((first, (X, y)), (half, (X2, y2))):
+        cr, Sr, SSr = nb_stats_ref(Xv, yv, 2)
+        assert torch.equal(G[:, 0], cr)
+        torch.testing.assert_close(G[:, 1:1 + d], Sr, rtol=1e-4, atol=1e-3 * scale)
+        torch.testing.assert_close(G[:, 1 + d:], SSr, rtol=1e-4, atol=1e-2 * scale)
+
+
+def _logreg_data(n, d, device, seed):
+    X = _randn((n, d), torch.float32, device, seed)
+    y = (_randn((n,), torch.float32, device, seed + 1) > 0).to(torch.int32)
+    return X, y
+
+
+@pytest.mark.parametrize("n,l,batch,d", [
+    (3 * 1000 + 17, 1000, 64, 10),     # warp form, ragged last chunk
+    (4 * 1000, 1000, 64, 10),          # warp form, whole chunks
+    (600, 1000, 64, 10),               # warp form, n < l
+    (2 * 512 + 40, 512, 32, 32),       # warp form at its widest d
+    (3 * 1000 + 17, 1000, 128, 3),
+    (3 * 1000 + 17, 1000, 50, 10),     # block form: batch not a multiple of 32
+    (2 * 700 + 9, 700, 64, 40),        # block form: d > 32
+])
+@pytest.mark.parametrize("lo", [0, 1], ids=["row0", "row1"])
+def test_logreg_segment_matches_plain(hopper, n, l, batch, d, lo):
+    X, y = _logreg_data(lo + n, d, hopper, 52)
+    X, y = X[lo:], y[lo:]
+    before = logreg_kernel.KERNEL.launches
+    W = logreg_ops.logreg_sgd_segment(X, y, chunk_size=l, lam=1e-3, lr=0.3, batch=batch)
+    torch.cuda.synchronize()
+    assert logreg_kernel.KERNEL.launches == before + 1
+    assert W.shape == (-(-n // l), d + 1)
+    want = logreg_ops.logreg_sgd_segment(X.cpu(), y.cpu(), chunk_size=l, lam=1e-3,
+                                         lr=0.3, batch=batch)
+    torch.testing.assert_close(W.cpu(), want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("p", [1, 5, 500])
+def test_logreg_chunk_alone_equals_chunk_in_segment(hopper, p):
+    """A chunk's weights are bitwise the same alone and inside a segment of
+    p chunks (plus a ragged tail), from int32 and fp32 labels, and from the
+    same rows as a view at row 1 of a table, as a copy at row 0 and as a
+    copy 4 bytes past an 8-byte boundary."""
+    l, d = 10_000, 10
+    n = p * l + 4_321
+    X, y = _logreg_data(n + 1, d, hopper, 53)
+    word1 = torch.empty(n * d + 1, device=hopper)[1:].view(n, d)
+    word1.copy_(X[1:])
+    views = {"row1": (X[1:], y[1:]), "row0": (X[1:].clone(), y[1:].clone()),
+             "word1": (word1, y[1:])}
+    got = {}
+    for name, (Xv, yv) in views.items():
+        W = logreg_ops.logreg_sgd_segment(Xv, yv, chunk_size=l)
+        Wf = logreg_ops.logreg_sgd_segment(Xv, yv.float(), chunk_size=l)
+        torch.cuda.synchronize()
+        assert torch.equal(W, Wf), name
+        for c in sorted({0, p // 2, p - 1, p}):      # chunk p is the ragged tail
+            rows = slice(c * l, min((c + 1) * l, n))
+            assert torch.equal(logreg_ops.logreg_sgd(Xv[rows], yv[rows]), W[c]), (name, c)
+        got[name] = W
+    assert torch.equal(got["row0"], got["row1"]) and torch.equal(got["row0"], got["word1"])
+
+
 def test_engine_on_the_card_plans_like_the_cpu(hopper):
     import numpy as np
 
@@ -451,8 +544,8 @@ def test_quant_kv_segment_is_one_launch_and_bitwise(hopper, leaves, block, dtype
         assert out.dtype == dtype and out.shape == q.shape
         assert out.data_ptr() % 16 == 0
         assert torch.equal(out, dequantize_leaf_ref(q, s, block=block, dtype=dtype))
-    assert _device_kernels(lambda: quant_ops.dequantize_leaves(qs, block=block,
-                                                               dtype=dtype)) == 1
+    assert enqueued(lambda: quant_ops.dequantize_leaves(qs, block=block,
+                                                        dtype=dtype)) == {"kernel": 1}
 
 
 def test_quant_kv_blocks_layout_and_bad_inputs(hopper):
