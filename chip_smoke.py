@@ -29,7 +29,12 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
      and with an int8 store on host and disk tiers (identical segment ids
      and tier counters too); then in bf16 (params and compute): logits
      within ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps of the CPU's, and both
-     greedy streams printed;
+     greedy streams printed; then ``SessionManager`` in fp32 over four
+     sessions and three rounds under a byte budget: the card's greedy
+     streams, plans and segment ids equal the CPU's, merged packs stream
+     as capacity-split ones, async prefill gives sync prefill's sampled
+     streams and store (payloads bitwise), and a deferred build's dispatch
+     makes no synchronising call (``torch.cuda.set_sync_debug_mode``);
   4. the main path at full width: ``deepseek-67b`` widths, bf16, depth cut
      from 95 to 24 layers so the weights fit one 80 GB card, a 4096-token
      document, chunk 128, requests with prefixes 2048, 4096, 3072 (16 new
@@ -55,6 +60,19 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
      statistics kernels' launch counters read around it; each family's
      model store is then saved, reloaded, and answers 10 more queries with
      the live store's plans and bitwise statistics.
+  9. batched serving at full width, on phase 4's model and store (run
+     after phase 6, before the model is freed): ``SessionManager`` with
+     eight sessions, four on phase 4's document (prefixes 2048, 4096, 3072,
+     1024) and four on their own 4096-token documents (512, 1024, 2048,
+     4096), two rounds of 16 greedy tokens (the second reads a segment
+     another session made and the continuations that decode write-back
+     forked), async prefill, merged packs of mixed capacity; the decode
+     kernel's launches must equal 24 x the decode calls, extend must
+     launch, the mean batch must exceed 1 and a cross-session hit occur;
+     every stream is compared with ``ServeEngine.generate`` on the same
+     (document, prefix, 16), and where one parts the single run's top-2
+     logit gap there must be within ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps
+     of its largest logit.
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -81,9 +99,9 @@ segment fit, i.e. per uncovered step, baseline query and warm-up model).
 
 Any failure exits non-zero.  The last two lines are the ``nvidia-smi``
 line and ``{"ok": true, "device": {...}}``; the line before them lists
-every kernel with its launches (on its own main path: serving for the
-attention kernels, the residency phase for the dequant kernel, analytics
-for the statistics kernels) and times.
+every kernel with its launches (on its own main path: batched serving,
+phase 9, for the attention kernels, the residency phase for the dequant
+kernel, analytics for the statistics kernels) and times.
 """
 from __future__ import annotations
 
@@ -335,9 +353,42 @@ def decode_phase(dev, timer) -> dict:
         print(f"  decode {str(dtype)[6:]:8s} each row alone == in the batch of {b}: {alone}")
         check(alone, f"decode output of a row depends on its batch ({dtype})")
 
+    # phase 9's merged pack, the shape whose launches the kernels line
+    # reports: B 8 at capacity 4160, whose last 128-position split is
+    # partial (4160 = 32.5 x 128), each row at its first and its last decode
+    # position of round 2 (up to 4127, inside that partial split)
     dtype = torch.bfloat16
+    pack_pos = [p for _, p in SESSION_ROUNDS[1]]
+    pb, pcap = len(pack_pos), session_pack_cap()
+    q = randn((pb, 1, h, hd), dtype, dev, 14)
+    k = randn((pb, pcap, kv, hd), dtype, dev, 15)
+    v = randn((pb, pcap, kv, hd), dtype, dev, 16)
+    qg = q.float()[:, 0].reshape(pb, kv, g, hd)
+    pack_err = 0.0
+    for step in (0, SESSION_NEW_TOKENS - 1):
+        pt = torch.tensor([p + step for p in pack_pos], dtype=torch.int32, device=dev)
+        got = decode_attention(q, k, v, pos=pt).reshape(pb, kv, g, hd)
+        for label, want in (
+                ("blocked", decode_attention_blocked(qg, k.float(), v.float(), pt)),
+                (f"split {split}", decode_attention_split(qg, k.float(), v.float(), pt,
+                                                          split=split))):
+            torch.cuda.synchronize()
+            ok, e = within(got, want, *DECODE_BF16_SPLIT_TOL)
+            ulp_ok, worst = within_bf16_ulp(got, want)
+            print(f"  decode bfloat16 B{pb} cap{pcap} pos {pt.tolist()} vs {label}: "
+                  f"max |err| {e:.3g} (rtol {DECODE_BF16_SPLIT_TOL[0]}, atol "
+                  f"{DECODE_BF16_SPLIT_TOL[1]}); error up to {worst:.3f}x one bf16 "
+                  f"ulp + 1e-6")
+            check(ok, f"decode kernel disagrees with its plain version at phase 9's "
+                      f"pack ({label}, cap {pcap}, max err {e})")
+            check(ulp_ok, f"bf16 decode kernel strays past one bf16 ulp of its fp32 "
+                          f"plain version at phase 9's pack ({label}, {worst:.3f}x)")
+            pack_err = max(pack_err, e)
+    del q, k, v, qg
+
     rows = {}
-    for shape, (bb, cc, pp) in (("B1", (1, 3088, [3072])), ("B4", (b, cap, pos.tolist()))):
+    for shape, (bb, cc, pp) in (("B1", (1, 3088, [3072])), ("B4", (b, cap, pos.tolist())),
+                                (f"B{pb}", (pb, pcap, pack_pos))):
         q = randn((bb, 1, h, hd), dtype, dev, 4)
         k = randn((bb, cc, kv, hd), dtype, dev, 5)
         v = randn((bb, cc, kv, hd), dtype, dev, 6)
@@ -356,13 +407,14 @@ def decode_phase(dev, timer) -> dict:
         bound_ms, bound_by = bound(flops, nbytes, dtype)
         rows[shape] = {"name": "decode_attention", "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "max_abs_err": err[dtype],
+                       "bound_by": bound_by,
+                       "max_abs_err": pack_err if bb == pb else err[dtype],
                        "shape": f"B{bb} KV{kv} G{g} hd{hd} cap{cc} pos{pp} bf16"}
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         print(f"  decode timing [{rows[shape]['shape']}, split {split}]: kernel "
               f"{ms:.4f} ms per call ({dev_ms:.4f} ms device), bound {bound_ms:.6f} ms "
               f"({bound_by}), plain {plain_ms:.4f} ms, sdpa {lib} ms")
-    return rows["B4"]
+    return rows[f"B{pb}"]      # the kernels line describes phase 9's pack
 
 
 # ---------------------------------------------------------------------------
@@ -1024,6 +1076,149 @@ def reduced_bf16_parity(dev) -> None:
           f"(> {REDUCED_BF16_LOGIT_ULPS} bf16 ulps of {ulp})")
 
 
+def session_script(mgr, docs, *, greedy: bool = True):
+    """Phase 3's session script: four sessions over three 256-token
+    documents, three rounds of mixed prefixes (one request covers its
+    whole document, so its write-back forks it and the next round reads
+    the continuation), an edit before the last round.  Returns (streams,
+    plans with segment ids)."""
+    a, b, c = docs
+    s = [mgr.add_session(a), mgr.add_session(a), mgr.add_session(b),
+         mgr.add_session(c)]
+    rounds = (((s[0], 200, 4), (s[1], 256, 4), (s[2], 130, 4), (s[3], 64, 6)),
+              ((s[0], 100, 3), (s[1], 260, 4), (s[2], 256, 4), (s[3], 200, 2)),
+              ((s[0], 250, 4), (s[1], 200, 3), (s[2], 220, 4), (s[3], 256, 3)))
+    streams, plans = [], []
+    for r, reqs in enumerate(rounds):
+        if r == 2:
+            edited = mgr.sessions[s[2]].doc.copy()
+            edited[150] = (edited[150] + 1) % 512
+            mgr.update_document(s[2], edited)
+        for sid, n, k in reqs:
+            plan = mgr.submit(sid, n, k, greedy=greedy, seed=10 * r + sid)
+            plans.append([(st.rng.lo, st.rng.hi, st.model_id) for st in plan.steps])
+        streams.append(mgr.run())
+    return streams, plans
+
+
+def store_state(store) -> tuple:
+    """Segment ids with ranges, owners, aliases and hits, the per-document
+    traffic, and evictions: what async and sync prefill must agree on."""
+    segs = [(sid, seg.rng.lo, seg.rng.hi, seg.doc_id, seg.hits,
+             tuple(sorted(seg.aliases))) for sid, seg in store._segs.items()]
+    return segs, sorted(store._doc_stats.items()), store.evictions
+
+
+def reduced_sessions(dev) -> None:
+    """``SessionManager`` on reduced ``deepseek-67b`` (fp32): the card's
+    greedy streams, plans and segment ids equal the CPU's under a byte
+    budget; on the card, merged packs stream as capacity-split ones, and
+    async prefill gives sync prefill's sampled streams and store, payloads
+    bitwise."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.common import tree_leaves, tree_map_with_path
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.session import SessionManager
+
+    cfg = reduced(get_config("deepseek-67b"))
+    cpu_model = LM(cfg, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+    gpu_model = LM(cfg, device=dev)
+    gpu_params = tree_map_with_path(lambda _, x: x.to(dev), cpu_params)
+    rng = np.random.default_rng(0)
+    docs = [rng.integers(0, cfg.vocab_size, 256).astype(np.int32) for _ in range(3)]
+    runs = {"cpu": (cpu_model, cpu_params), "cuda": (gpu_model, gpu_params)}
+
+    def manager(name, **kw):
+        m, p = runs[name]
+        return SessionManager(m, p, chunk_tokens=64, max_batch=8, **kw)
+
+    probe = manager("cuda")
+    session_script(probe, docs)
+    budget = probe.store.nbytes() // 2
+    out = {}
+    for name in runs:
+        mgr = manager(name, byte_budget=budget)
+        streams, plans = session_script(mgr, docs)
+        out[name] = (streams, plans, sorted(mgr.store._segs), mgr.store.evictions,
+                     mgr.store.cross_session_hits, mgr.sched.decode_segments)
+    c = out["cuda"]
+    print(f"  sessions, budget {budget} B: {sum(len(t) for r in c[0] for t in r.values())} "
+          f"tokens in {len(c[1])} requests, {len(c[2])} segments, evictions {c[3]}, "
+          f"cross-session hits {c[4]}, decode segments {c[5]}; card == CPU: "
+          f"{out['cuda'] == out['cpu']}")
+    check(out["cuda"] == out["cpu"],
+          "reduced sessions: card and CPU disagree in tokens, plans or segments")
+    check(c[3] > 0 and c[4] > 0 and c[5] > 0,
+          f"reduced sessions skipped eviction, cross-session reuse or write-back: {c[3:]}")
+    split = manager("cuda", async_prefill=False, merge_decode_packs=False)
+    merged = manager("cuda", async_prefill=False)
+    same = session_script(split, docs)[0] == session_script(merged, docs)[0]
+    print(f"  merged packs (mean batch {merged.sched.mean_batch:.2f}) vs capacity-split "
+          f"(mean batch {split.sched.mean_batch:.2f}): identical streams: {same}")
+    check(same, "reduced sessions: merged packs stream differently from split ones")
+    st = {}
+    for mode in (False, True):
+        mgr = manager("cuda", byte_budget=budget, async_prefill=mode)
+        streams, _ = session_script(mgr, docs, greedy=False)
+        st[mode] = (streams, store_state(mgr.store), mgr)
+    a, s = st[True], st[False]
+    payload = all(torch.equal(x, y) for sid, seg in a[2].store._segs.items()
+                  for x, y in zip(tree_leaves(seg.caches),
+                                  tree_leaves(s[2].store._segs[sid].caches)))
+    print(f"  async prefill ({a[2].sched.tickets_launched} tickets, "
+          f"{a[2].sched.overlap_steps} decode rounds overlapped builds) vs sync, sampled: "
+          f"identical streams {a[0] == s[0]}, store {a[1] == s[1]}, payloads {payload}")
+    check(a[0] == s[0] and a[1] == s[1] and payload,
+          "reduced sessions: async prefill differs from sync in tokens or store")
+
+
+def deferred_build_waits_for_nothing(dev) -> None:
+    """``prefix_with_logits(defer=True)``, cold and over stored segments,
+    under ``torch.cuda.set_sync_debug_mode``: the dispatch phase of an async
+    build must not wait on the device (no synchronising call)."""
+    import warnings
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.session import SessionManager
+
+    cfg = reduced(get_config("deepseek-67b"))
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    doc = np.random.default_rng(3).integers(0, cfg.vocab_size, 512).astype(np.int32)
+    mgr = SessionManager(model, params, chunk_tokens=64)
+    sid = mgr.add_session(doc)
+    mgr.submit(sid, 300, 2)
+    mgr.run()                    # stored segments to reuse; kernels loaded
+    b, doc_id = mgr.builder, mgr.sessions[sid].doc_id
+    torch.cuda.synchronize(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            cold = b.prefix_with_logits(doc, 290, doc_id="cold", capacity=300, defer=True)
+            warm = b.prefix_with_logits(doc, 450, doc_id=doc_id, capacity=460, defer=True)
+            dispatch = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's warnings name each synchronising call; its one-time notice
+    # that the mode is a prototype is not one of them
+    syncs = sorted({str(w.message).splitlines()[0] for w in caught
+                    if "synchronizing CUDA operation" in str(w.message)})
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    wait = time.perf_counter() - t0
+    for built in (cold, warm):
+        b.finalize_build(built[3])
+    print(f"  deferred builds (cold 290, warm 450 over {len(warm[2].models_used)} stored "
+          f"segments): dispatch {dispatch * 1e3:.1f} ms, then {wait * 1e3:.1f} ms until the "
+          f"card finished; synchronising calls in the dispatch: {len(syncs)} {syncs}")
+    check(not syncs, f"the deferred build synchronised: {syncs}")
+    check(warm[2].models_used and b.store._pins == {}, "deferred builds left pins")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -1097,13 +1292,45 @@ PORT_KERNELS = tuple(f"void (anonymous namespace)::{name}" for name in
                      ("extend_mma_kernel", "split_kernel", "combine_kernel"))
 
 
+def profile_steps(label: str, steps: int, fn, dev) -> None:
+    """torch.profiler over ``steps`` calls of ``fn``: wall and device busy
+    time per call, the top kernels and the share of the port's attention
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
+    if not rows:
+        print(f"  {label}: wall {wall:.2f} ms; the profiler saw no device "
+              f"time (device split not measured)")
+        return
+    print(f"  {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"({busy / wall:.0%}), idle {max(wall - busy, 0.0):.2f} ms")
+    ranked = sorted(rows, key=lambda r: -r[1])
+    # the top kernels, then the port's own kernels further down
+    for i, (key, ms, n) in enumerate(ranked):
+        if i < 6 or "(anonymous namespace)::" in key:
+            print(f"    {ms:8.3f} ms  {ms / busy:5.1%}  x{n:<4d} {key[:90]}")
+    ours = sum(ms for key, ms, _ in rows if key.startswith(PORT_KERNELS))
+    print(f"    the port's attention kernels: {ours:.3f} ms of {busy:.2f} ms busy "
+          f"({ours / busy:.1%}); the rest {busy - ours:.2f} ms")
+
+
 def where_time_goes(eng, dev) -> None:
     """torch.profiler over four full-width decode steps at position 3072 and
     one 128-token extend at 2048 (after the main path's counters are read):
     device busy time per step and the kernels that take it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     model, params, doc = eng.model, eng.params, eng.doc
     logits, caches, _ = eng.builder.prefix_with_logits(
         doc, 3072, doc_id=eng.doc_id, capacity=3088)
@@ -1113,36 +1340,10 @@ def where_time_goes(eng, dev) -> None:
                                       materialize=False, capacity=2176)
     chunk = torch.as_tensor(doc[None, 2048:2176].astype(np.int64), device=dev)
     start = torch.tensor(2048, dtype=torch.int32, device=dev)
-    torch.cuda.synchronize(dev)
-    for label, steps, fn in (
-            ("decode step", 4, lambda: model.decode_step(params, caches, tok, pos)),
-            ("extend 128 tokens", 1,
-             lambda: model.prefill_extend(params, ext, chunk, start))):
-        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize(dev)
-            wall = (time.perf_counter() - t0) / steps * 1e3
-        rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = sum(ms for _, ms, _ in rows)
-        if not rows:
-            print(f"  {label}: wall {wall:.2f} ms; the profiler saw no device "
-                  f"time (device split not measured)")
-            continue
-        print(f"  {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-              f"({busy / wall:.0%}), idle {max(wall - busy, 0.0):.2f} ms")
-        ranked = sorted(rows, key=lambda r: -r[1])
-        # the top kernels, then the port's own kernels further down
-        for i, (key, ms, n) in enumerate(ranked):
-            if i < 6 or "(anonymous namespace)::" in key:
-                print(f"    {ms:8.3f} ms  {ms / busy:5.1%}  x{n:<4d} {key[:90]}")
-        ours = sum(ms for key, ms, _ in rows if key.startswith(PORT_KERNELS))
-        print(f"    the port's attention kernels: {ours:.3f} ms of {busy:.2f} ms busy "
-              f"({ours / busy:.1%}); the rest {busy - ours:.2f} ms")
+    profile_steps("decode step", 4,
+                  lambda: model.decode_step(params, caches, tok, pos), dev)
+    profile_steps("extend 128 tokens", 1,
+                  lambda: model.prefill_extend(params, ext, chunk, start), dev)
 
 
 # ---------------------------------------------------------------------------
@@ -1357,6 +1558,206 @@ def residency_phase(base, ref, dev) -> int:
           f"decode {dk.KERNEL.launches}")
     check(launches == dequants, "quant_kv launched off the reuse path, or more than "
                                 "once per segment")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: batched serving at full width
+# ---------------------------------------------------------------------------
+
+#: (shared document?, prefix) per session and round: four sessions on phase
+#: 4's document, four on their own; round 2 reads a segment another session
+#: made in round 1 (1024 after 1024's gap), and the continuations that
+#: write-back made of the 4096-token requests (4112 = 4096 + 16)
+SESSION_ROUNDS = (
+    ((True, 2048), (True, 4096), (True, 3072), (True, 1024),
+     (False, 512), (False, 1024), (False, 2048), (False, 4096)),
+    ((True, 1024), (True, 4112), (True, 2048), (True, 3072),
+     (False, 1024), (False, 2048), (False, 512), (False, 4112)),
+)
+SESSION_NEW_TOKENS = 16
+#: phase 9's decode bucket (``SessionManager``'s default, passed explicitly)
+SESSION_DECODE_BUCKET = 64
+
+
+def session_pack_cap() -> int:
+    """Capacity of phase 9's round-2 merged pack: the longest row's prefix
+    plus its new tokens, rounded up to the decode bucket."""
+    longest = max(p for _, p in SESSION_ROUNDS[1]) + SESSION_NEW_TOKENS
+    return -(-longest // SESSION_DECODE_BUCKET) * SESSION_DECODE_BUCKET
+
+
+def top2_gap(logits) -> tuple[float, float]:
+    """(top-1 minus top-2 logit, largest |logit|) of a (1, V) row."""
+    top = torch.topk(logits.float()[0], 2).values
+    return float(top[0] - top[1]), float(logits.float().abs().max())
+
+
+def single_logits(eng, prefix: int, tokens: list, at: int):
+    """The logits ``ServeEngine.generate(prefix, ...)`` sampled token ``at``
+    from, replayed through the same calls with the stream it produced."""
+    model, params = eng.model, eng.params
+    logits, caches, _ = eng.builder.prefix_with_logits(
+        eng.doc, prefix, doc_id=eng.doc_id, capacity=prefix + SESSION_NEW_TOKENS)
+    pos = torch.tensor([prefix], dtype=torch.int32, device=eng.device)
+    for tok in tokens[:at]:
+        nxt = torch.tensor([[tok]], dtype=torch.int64, device=eng.device)
+        logits, caches = model.decode_step(params, caches, nxt, pos)
+        pos = pos + 1
+    return logits
+
+
+def sessions_phase(base, dev) -> dict:
+    """Eight sessions through ``SessionManager`` on phase 4's model and
+    store, two rounds, async prefill, merged packs; every stream against
+    ``ServeEngine.generate``.  Returns the attention kernels' launches."""
+    from repro_torch.kernels.common import bf16_ulp
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.extend_attention import kernel as ek
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kv_cache import cache_len, pad_cache_to
+    from repro_torch.serve.session import SessionManager, batch_caches
+
+    model, params, store = base.model, base.params, base.store
+    cfg = model.cfg
+    rng = np.random.default_rng(9)
+    own = [rng.integers(0, cfg.vocab_size, 4096).astype(np.int32) for _ in range(4)]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mgr = SessionManager(model, params, chunk_tokens=128, max_batch=8, store=store,
+                         async_prefill=True, decode_bucket=SESSION_DECODE_BUCKET)
+    check(mgr.merge_decode_packs and mgr.decode_materialize,
+          "phase 9 needs merged packs and decode write-back")
+    sids, k = [], 0
+    for shared, _ in SESSION_ROUNDS[0]:
+        if shared:
+            sids.append(mgr.add_session(base.doc, doc_id=base.doc_id))
+        else:
+            sids.append(mgr.add_session(own[k]))
+            k += 1
+    hits0 = store.cross_session_hits
+    requests = []
+    # the (batch, capacity) of every pack decoded, read from shapes alone
+    # (no synchronisation); phase 2 holds the kernel against its plain
+    # version at the full pack's shape
+    pack_shapes: dict = {}
+
+    def decode_step(params, caches, toks, pos):
+        shape = (int(toks.shape[0]), cache_len(caches))
+        pack_shapes[shape] = pack_shapes.get(shape, 0) + 1
+        return type(model).decode_step(model, params, caches, toks, pos)
+
+    model.decode_step = decode_step
+    ek.KERNEL.launches = 0
+    dk.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    for r, reqs in enumerate(SESSION_ROUNDS):
+        t_round = time.perf_counter()
+        for sid, (_, prefix) in zip(sids, reqs):
+            s = mgr.sessions[sid]
+            check(prefix <= len(s.doc), f"phase 9: prefix {prefix} past session {sid}'s "
+                                        f"{len(s.doc)}-token document")
+            plan = mgr.submit(sid, prefix, SESSION_NEW_TOKENS)
+            requests.append({"round": r, "sid": sid, "prefix": prefix, "doc": s.doc.copy(),
+                             "doc_id": s.doc_id, "plan": plan})
+        submit_s = time.perf_counter() - t_round
+        out = mgr.run()
+        torch.cuda.synchronize(dev)
+        for q in requests[-len(sids):]:
+            q["tokens"] = out[q["sid"]]
+        print(f"  round {r + 1}: submit {submit_s:.3f} s (dispatch only), round "
+              f"{time.perf_counter() - t_round:.3f} s; prefixes {[p for _, p in reqs]}; "
+              f"reused per request {[len(q['plan'].models_used) for q in requests[-len(sids):]]} "
+              f"segments")
+    wall = time.perf_counter() - t0
+    launches = {"extend_attention": ek.KERNEL.launches, "decode_attention": dk.KERNEL.launches}
+    del model.decode_step
+    peak = torch.cuda.max_memory_allocated(dev)
+    rep = mgr.report()
+    sc = mgr.sched
+    agg = mgr.aggregate_stats()
+    forks = [q for q in requests if q["round"] == 1 and q["prefix"] == 4112]
+    print(f"  {len(sids)} sessions x {len(SESSION_ROUNDS)} rounds x {SESSION_NEW_TOKENS} "
+          f"tokens: wall {wall:.2f} s, aggregate decode {agg.decode_tok_s:.1f} tok/s "
+          f"({agg.tokens_decoded} tokens in {agg.decode_s:.2f} s of decode rounds), "
+          f"{agg.tokens_decoded / wall:.1f} tok/s wall")
+    print(f"  decode calls {sc.decode_calls}, mean batch {sc.mean_batch:.2f}, padded "
+          f"occupancy {sc.decode_padded_frac:.3f} ({sc.decode_valid_tokens} valid / "
+          f"{sc.decode_padded_tokens} padded KV tokens), pack rebuilds {sc.pack_rebuilds}, "
+          f"attention {sc.decode_attn_flops / 1e12:.3f} TFLOP")
+    print(f"  reuse {agg.reuse_frac:.1%} ({agg.tokens_reused} reused / {agg.tokens_computed} "
+          f"computed), cross-session hits {store.cross_session_hits - hits0}, write-back "
+          f"{sc.decode_segments} admitted / {sc.decode_rejects} rejected, forks served "
+          f"{[len(q['plan'].models_used) for q in forks]} segments")
+    print(f"  tickets {sc.tickets_launched} launched / {sc.tickets_joined} joined, join wait "
+          f"{sc.join_wait_s:.3f} s (mean {sc.mean_join_wait_s * 1e3:.1f} ms), "
+          f"{sc.overlap_steps} decode rounds overlapped builds; peak memory "
+          f"{peak / 2**30:.2f} GiB; store {len(store)} segments "
+          f"({store.nbytes() / 2**20:.0f} MiB); {nvidia_smi_line()}")
+    print(f"  launches: {launches} (decode {launches['decode_attention']} = "
+          f"{FULL_LAYERS} x {sc.decode_calls} decode calls); decode calls per (batch, "
+          f"capacity): {dict(sorted(pack_shapes.items()))}")
+    full_pack = (len(SESSION_ROUNDS[1]), session_pack_cap())
+    check(pack_shapes.get(full_pack, 0) > 0,
+          f"phase 9 never decoded the pack shape {full_pack} that phase 2 checks")
+    check(launches["decode_attention"] == FULL_LAYERS * sc.decode_calls,
+          f"decode launches {launches['decode_attention']} != {FULL_LAYERS} x "
+          f"{sc.decode_calls} decode calls")
+    check(launches["extend_attention"] > 0, "phase 9 launched no extend kernel")
+    check(sc.mean_batch > 1.0, f"phase 9 decoded at mean batch {sc.mean_batch}")
+    check(store.cross_session_hits - hits0 > 0, "phase 9 saw no cross-session hit")
+    check(sc.tickets_launched == sc.tickets_joined == len(requests),
+          f"tickets {sc.tickets_launched} launched, {sc.tickets_joined} joined")
+    check(all(len(q["tokens"]) == SESSION_NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in q["tokens"]) for q in requests),
+          "phase 9: a stream is short or holds a token out of range")
+    check(len(forks) == 2 and all(len(q["doc"]) == 4112 and q["plan"].models_used
+                                  for q in forks),
+          "phase 9: the continuations were not served from aliased segments")
+    check(bool(rep) and all(np.isfinite(v) for v in rep.values()),
+          "phase 9: the report holds a value that is not finite")
+    mgr_builder = mgr.builder
+    del mgr
+    torch.cuda.empty_cache()
+
+    # each stream against ServeEngine.generate on the same (document, prefix, 16)
+    parted = []
+    for q in requests:
+        eng = ServeEngine(model, params, q["doc"], chunk_tokens=128, store=store,
+                          doc_id=q["doc_id"], device=dev)
+        single, _ = eng.generate(q["prefix"], SESSION_NEW_TOKENS)
+        at = next((i for i, (x, y) in enumerate(zip(q["tokens"], single)) if x != y), None)
+        if at is None:
+            continue
+        gap, top = top2_gap(single_logits(eng, q["prefix"], single, at))
+        ulps = gap / float(bf16_ulp(torch.tensor(top)))
+        parted.append((q["round"], q["sid"], q["prefix"], at, gap, ulps))
+        print(f"  round {q['round'] + 1} session {q['sid']} prefix {q['prefix']}: batched and "
+              f"single part at token {at}; the single run's top-2 gap there {gap:.4g} "
+              f"({ulps:.2f} bf16 ulps of its largest logit {top:.4g}; limit "
+              f"{REDUCED_BF16_LOGIT_ULPS})")
+    print(f"  batched vs single-session streams: {len(requests) - len(parted)} of "
+          f"{len(requests)} identical, {len(parted)} parted at a near-tie")
+    check(all(p[5] <= REDUCED_BF16_LOGIT_ULPS for p in parted),
+          f"phase 9: a batched stream parted from its single run away from a near-tie: "
+          f"{parted}")
+
+    # where a batched step's time goes: round 2's eight requests in one
+    # merged pack (phase 5 profiles the batch-1 step)
+    rows = [q for q in requests if q["round"] == 1]
+    caches = [mgr_builder.prefix_with_logits(q["doc"], q["prefix"], doc_id=q["doc_id"],
+                                             capacity=q["prefix"] + SESSION_NEW_TOKENS)[1]
+              for q in rows]
+    cap = max(cache_len(c) for c in caches)
+    pack = batch_caches([pad_cache_to(c, cap) for c in caches])
+    del caches
+    toks = torch.tensor([[q["tokens"][0]] for q in rows], dtype=torch.int64, device=dev)
+    pos = torch.tensor([q["prefix"] for q in rows], dtype=torch.int32, device=dev)
+    profile_steps(f"batched decode step (B {len(rows)}, capacity {cap}, pos "
+                  f"{[q['prefix'] for q in rows]})", 4,
+                  lambda: model.decode_step(params, pack, toks, pos), dev)
+    del pack
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1666,6 +2067,9 @@ def main() -> int:
     reduced_parity(dev)
     print("    reduced deepseek-67b (bf16 params and compute): card vs CPU")
     reduced_bf16_parity(dev)
+    print("    reduced deepseek-67b (fp32): SessionManager, card vs CPU")
+    reduced_sessions(dev)
+    deferred_build_waits_for_nothing(dev)
 
     print(f"[4] full-width main path ({FULL_LAYERS} layers, bf16)")
     counts, eng, ref = main_path(dev)
@@ -1673,6 +2077,9 @@ def main() -> int:
     where_time_goes(eng, dev)
     print(f"[6] residency at full width ({FULL_LAYERS} layers, bf16 model)")
     counts["quant_kv"] = residency_phase(eng, ref, dev)
+    print(f"[9] batched serving at full width ({FULL_LAYERS} layers, bf16 model, "
+          f"phase 4's store)")
+    counts.update(sessions_phase(eng, dev))
     del eng, ref
     torch.cuda.empty_cache()
 

@@ -1,13 +1,17 @@
 """Serving driver of the PyTorch port: descriptor-planned prefix reuse,
-single session over one document.
+one session over one document, or ``--sessions N`` batched sessions over
+a shared segment store.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-67b \
       --reduced --doc-len 2048 --requests 8 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-67b \
+      --reduced --sessions 4 --shared-docs 2 --requests 2 --new-tokens 5 \
+      --chunk-tokens 64 --byte-budget 300000 --edit-every 1
 
-runs on the CUDA device; ``--device cpu`` runs the same path on the CPU
+run on the CUDA device; ``--device cpu`` runs the same path on the CPU
 (the kernels' plain versions).  The flags are those of
-``python -m repro.launch.serve``; the ones whose features the port does
-not have yet (multi-session, edits, sharding) raise
+``python -m repro.launch.serve`` and the printed lines keep its wording;
+the sharding flags, whose feature the port does not have yet, raise
 ``NotImplementedError`` naming the ROADMAP.md item.
 
 Residency: ``--store-dir`` reloads a snapshot at start (when one exists),
@@ -34,10 +38,6 @@ import torch
 #: (flag, attribute, value meaning "off", ROADMAP.md §1 item) of features
 #: the port does not implement yet
 _NOT_PORTED = (
-    ("--sessions", "sessions", 1, "item 4 (batched serving)"),
-    ("--edit-every", "edit_every", 0, "item 4 (multi-session edit traffic)"),
-    ("--edit-kind", "edit_kind", "random", "item 4 (multi-session edit traffic)"),
-    ("--edit-span", "edit_span", 16, "item 4 (multi-session edit traffic)"),
     ("--shards", "shards", 1, "item 7 (sharding)"),
     ("--shard-bw", "shard_bw", 2e9, "item 7 (sharding)"),
     ("--shard-rtt", "shard_rtt", 1e-3, "item 7 (sharding)"),
@@ -189,6 +189,106 @@ def run_single(args, cfg, model, params, rng, device) -> None:
     _print_tier_report(eng.store, args)
 
 
+def run_multi(args, cfg, model, params, rng, device) -> None:
+    from repro_torch.serve.session import SessionManager
+
+    n_shared = min(max(args.shared_docs, 0), args.sessions)
+    shared_doc = rng.integers(0, cfg.vocab_size, args.doc_len).astype(np.int32)
+    unique_docs = [rng.integers(0, cfg.vocab_size, args.doc_len).astype(np.int32)
+                   for _ in range(args.sessions - n_shared)]
+    budget = args.byte_budget if args.byte_budget > 0 else None
+    store = _make_store(args, budget, args.chunk_tokens, device)  # = decode_bucket
+    store_kw = (dict(store=store) if store is not None
+                else dict(byte_budget=budget,
+                          eviction_policy=args.eviction_policy))
+    mgr = SessionManager(model, params, chunk_tokens=args.chunk_tokens,
+                         decode_bucket=args.chunk_tokens,
+                         max_batch=args.max_batch,
+                         decode_materialize=not args.no_decode_materialize,
+                         async_prefill=args.async_prefill,
+                         **store_kw)
+    # the first `n_shared` sessions all serve one document; the rest get unique docs
+    sids = []
+    for i in range(args.sessions):
+        doc = shared_doc if i < n_shared else unique_docs[i - n_shared]
+        sids.append(mgr.add_session(doc))
+
+    import time
+
+    edit_reused = edit_rebuilt = 0
+    t0 = time.perf_counter()
+    for r in range(args.requests):
+        reqs = []
+        for i, sid in enumerate(sids):
+            dl = len(mgr.sessions[sid].doc)
+            L = int(rng.integers(max(dl // 4, 1), max(dl, 2)))
+            reqs.append((sid, L, args.new_tokens, r * 1000 + i))
+        for plan in mgr.submit_many(reqs, greedy=False):
+            assert plan.validate_telescoping()
+        mgr.run()
+        if args.edit_every and (r + 1) % args.edit_every == 0:
+            # edit traffic: each session's document mutates mid-stream and
+            # the store keeps every segment before the divergence point
+            from repro_torch.data.edits import EDIT_KINDS, random_edit
+
+            kinds = (EDIT_KINDS if args.edit_kind == "random"
+                     else (args.edit_kind,))
+            for sid in sids:
+                doc = mgr.sessions[sid].doc
+                new_doc, _, _, _ = random_edit(
+                    rng, doc, cfg.vocab_size, kinds=kinds,
+                    max_span=args.edit_span, min_offset=len(doc) // 4)
+                eplan = mgr.update_document(sid, new_doc)
+                edit_reused += eplan.reused_tokens
+                edit_rebuilt += eplan.rebuild_tokens
+        if args.snapshot_every and (r + 1) % args.snapshot_every == 0:
+            _snapshot(mgr.store, args)
+    wall = time.perf_counter() - t0
+    _snapshot(mgr.store, args, final=True)
+
+    agg = mgr.aggregate_stats()
+    st = mgr.store
+    print(f"{args.sessions} sessions × {args.requests} requests "
+          f"({n_shared} on a shared doc):")
+    print(f"  aggregate: {agg.tokens_decoded} tokens decoded, "
+          f"{agg.tokens_decoded / wall:.1f} tok/s wall, reuse {agg.reuse_frac:.1%} "
+          f"({agg.tokens_reused} reused / {agg.tokens_computed} computed)")
+    print(f"  store: {len(st)} segments, {st.nbytes()/1e6:.1f} MB, "
+          f"{st.evictions} evictions ({st.policy} policy), "
+          f"{st.cross_session_hits} cross-session hits")
+    print(f"  scheduler: {mgr.sched.decode_calls} batched decode calls, "
+          f"mean batch {mgr.sched.mean_batch:.2f}, "
+          f"{mgr.sched.pack_rebuilds} pack rebuilds")
+    print(f"  decode materialization: {mgr.sched.decode_segments} segments "
+          f"admitted, {mgr.sched.decode_rejects} rejected")
+    rep = mgr.report()   # finite even on an idle run
+    packing = "merged ragged" if mgr.merge_decode_packs else "capacity-split"
+    print(f"  decode packs ({packing}, {mgr.decode_mode} attention): "
+          f"padded occupancy {rep['decode_padded_frac']:.1%} "
+          f"({rep['decode_valid_tokens']} valid / "
+          f"{rep['decode_padded_tokens']} padded KV tokens), "
+          f"attn ~{rep['decode_attn_flops']/1e9:.3f} GFLOP")
+    mode = "async" if mgr.async_prefill else "sync"
+    print(f"  pipeline ({mode} prefill): {rep['tickets_launched']} builds "
+          f"launched, {rep['tickets_joined']} joined "
+          f"(mean join wait {rep['mean_join_wait_s']*1e3:.1f} ms), "
+          f"{rep['overlap_steps']} decode rounds overlapped builds "
+          f"(mean batch {rep['overlap_batch']:.2f})")
+    if args.edit_every:
+        sc = mgr.sched
+        tot = edit_reused + edit_rebuilt
+        print(f"  edits: {sc.edits} applied, "
+              f"{sc.edit_reused_segments} segments rekeyed, "
+              f"{sc.edit_orphaned} orphaned, "
+              f"{sc.edit_cancelled} requests cancelled, "
+              f"reused {edit_reused}/{tot} planned tokens "
+              f"({edit_reused / tot if tot else 0.0:.1%})")
+    _print_tier_report(st, args)
+    if args.store_dir and st.last_save:
+        print(f"  snapshot: {st.last_save['written']} entries written, "
+              f"{st.last_save['reused']} reused from the previous snapshot")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -202,8 +302,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk-tokens", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sessions", type=int, default=1,
-                    help=">1 switches to the multi-session batched engine "
-                         "(not ported yet)")
+                    help=">1 switches to the multi-session batched engine")
     ap.add_argument("--shared-docs", type=int, default=2,
                     help="multi-session only: sessions serving one document")
     ap.add_argument("--max-batch", type=int, default=8,
@@ -221,10 +320,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sync-prefill", dest="async_prefill",
                     action="store_false",
                     help="multi-session only: blocking prefix builds")
-    ap.add_argument("--edit-every", type=int, default=0)
+    ap.add_argument("--edit-every", type=int, default=0,
+                    help="multi-session only: after every N request rounds, "
+                         "edit each session's document and serve the edited "
+                         "text through the delta-update path (0 = no edits)")
     ap.add_argument("--edit-kind", choices=["insert", "delete", "replace",
-                                            "random"], default="random")
-    ap.add_argument("--edit-span", type=int, default=16)
+                                            "random"], default="random",
+                    help="which edit --edit-every applies")
+    ap.add_argument("--edit-span", type=int, default=16,
+                    help="most tokens one edit inserts, deletes or replaces")
     ap.add_argument("--store-dir", default="")
     ap.add_argument("--snapshot-every", type=int, default=0)
     ap.add_argument("--host-budget", type=int, default=0)
@@ -259,7 +363,10 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen)
     rng = np.random.default_rng(args.seed)
-    run_single(args, cfg, model, params, rng, device)
+    if args.sessions > 1:
+        run_multi(args, cfg, model, params, rng, device)
+    else:
+        run_single(args, cfg, model, params, rng, device)
 
 
 if __name__ == "__main__":

@@ -83,7 +83,7 @@ def blocked_attention(q, k, v, q_pos, k_pos, *, causal: bool, block: int = 512):
             pblk = k_pos[..., i * block:(i + 1) * block]
             kp = pblk if pblk.ndim == 2 else pblk[None]
             mask = qp[:, None, None, :, None] >= kp[:, None, None, None, :]
-            sc = torch.where(mask, sc, torch.tensor(NEG_INF, device=q.device))
+            sc = torch.where(mask, sc, NEG_INF)   # a scalar: no host copy
         m_new = torch.maximum(m, sc.amax(-1))
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)

@@ -1,4 +1,4 @@
-"""Serving engine: single-document decode with descriptor-planned prefix reuse.
+"""Serving engine: descriptor-planned prefix reuse for one or many sessions.
 
 A request for ``[0, L)`` of a document — a KV cache covering its first L
 tokens — is planned with the paper's machinery: Dijkstra over segment
@@ -7,17 +7,21 @@ a monotone cost model.  Gaps are prefilled in fixed-size chunks and each
 chunk is materialized for future requests (paper Alg 2 with KV segments
 in place of chunk models).
 
-:class:`ServeEngine` is one session over one document; it drives a
-:class:`PrefixCacheBuilder`, which owns the model entry points.  The
-batched multi-session front end (``SessionManager``) and the deferred
-(async) build path wait for ROADMAP.md §1 item 4.  Reused int8 segments
-come back to model precision through the ``quant_kv`` kernel
+Two front ends drive a :class:`PrefixCacheBuilder`, which owns the model
+entry points: :class:`ServeEngine` (one session over one document) and
+:class:`repro_torch.serve.session.SessionManager` (N sessions over a
+shared store, batched decode).  The builder's deferred path
+(``defer=True``) dispatches a build without waiting for the device and
+records its store insertions on a :class:`PendingBuild`, landed later by
+:meth:`PrefixCacheBuilder.finalize_build`.  Reused int8 segments come
+back to model precision through the ``quant_kv`` kernel
 (:meth:`PrefixCacheBuilder._segment_caches`).
 """
 from __future__ import annotations
 
+import contextlib
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -57,6 +61,27 @@ class ServeStats:
     def decode_tok_s(self) -> float:
         return (self.tokens_decoded / self.decode_s
                 if self.decode_s > 0 else 0.0)
+
+
+@dataclass
+class PendingBuild:
+    """Deferred store side effects of one dispatched prefix build.
+
+    ``build_prefix(..., defer=True)`` launches every gap's device work but
+    records the chunk segments here instead of inserting them, and pins
+    the plan's reuse segments under ``pin_token`` so eviction cannot
+    reclaim what the queued work still reads.
+    :meth:`PrefixCacheBuilder.finalize_build` lands the insertions in the
+    order the synchronous path would have and releases the pins.  The
+    recorded trees are copies whose values the device writes in stream
+    order, so landing them never waits on the device.
+    """
+    doc_id: str
+    requester: Optional[int]
+    #: [(rng, segment cache tree)] in ascending document order
+    puts: list = field(default_factory=list)
+    pin_token: tuple = ()
+    finalized: bool = False
 
 
 def _sync(device: torch.device) -> None:
@@ -126,10 +151,16 @@ class PrefixCacheBuilder:
         return sum(self.lowerings.values())
 
     def _tokens(self, toks) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(toks, np.int64), device=self.device)
+        t = torch.as_tensor(np.asarray(toks, np.int64))
+        if self.device.type == "cuda":
+            # staged through pinned memory, so the copy is queued on the
+            # stream instead of waited for (the deferred path never blocks)
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     def _scalar(self, x: int) -> torch.Tensor:
-        return torch.tensor(x, dtype=torch.int32, device=self.device)
+        # a fill on the device, not a host-to-device copy
+        return torch.full((), x, dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------
     def plan_prefix(self, length: int, *, doc_id: str = DEFAULT_DOC,
@@ -148,7 +179,8 @@ class PrefixCacheBuilder:
                      stats: Optional[ServeStats] = None,
                      materialize: bool = True,
                      requester: Optional[int] = None,
-                     capacity: Optional[int] = None):
+                     capacity: Optional[int] = None,
+                     defer: bool = False):
         """Assemble the KV cache for document[:length] via the cheapest plan.
 
         Returns (caches, plan) with the caches' sequence axis padded to
@@ -157,6 +189,14 @@ class PrefixCacheBuilder:
         capacity; each chunk is materialized for future requests.
         Segments the plan references are pinned for the duration so chunk
         puts can never evict them mid-execution.
+
+        ``defer=True`` is the dispatch phase of an async build: the device
+        work is launched and not waited for (``prefill_s`` counts dispatch
+        time only), chunk materializations are recorded on the returned
+        :class:`PendingBuild` instead of stored, and the plan's reuse
+        segments stay pinned under its ``pin_token`` until
+        :meth:`finalize_build`, which must run before any *other* store
+        insertion.  Returns ``(caches, plan, pending)``.
         """
         stats = stats if stats is not None else ServeStats()
         plan = self.plan_prefix(length, doc_id=doc_id, stats=stats)
@@ -168,37 +208,80 @@ class PrefixCacheBuilder:
             if st.model_id is not None:
                 end = st.rng.lo + self.store.capacity(st.model_id)
                 cap = max(cap, bucket_len(end, self.seq_bucket))
-        sink = None
-        if materialize:
+        pending = PendingBuild(doc_id=doc_id, requester=requester) \
+            if defer else None
+        if not materialize:
+            sink = None
+        elif defer:
+            sink = lambda rng, seg: pending.puts.append((rng, seg))  # noqa: E731
+        else:
             sink = lambda rng, seg: self.store.put(  # noqa: E731
                 rng, seg, doc_id=doc_id, created_by=requester)
+        if defer:
+            pending.pin_token = self.store.pin(plan.models_used)
+            ctx = contextlib.nullcontext()
+        else:
+            ctx = self.store.pinned(plan.models_used)
         caches = None
         t0 = time.perf_counter()
-        with self.store.pinned(plan.models_used):
-            self.store.prefetch_ids(plan.models_used)
-            for st in steps:
-                if st.model_id is not None:
-                    seg = self.store.get(st.model_id, requester=requester)
-                    seg_caches = self._segment_caches(seg)
-                    if caches is None:
-                        # plan anchor at 0: adopt a copy of the segment,
-                        # grown to the request capacity (later steps write
-                        # into it in place; the stored copy stays intact)
-                        caches = pad_cache_to(seg_caches, cap)
-                        if caches is seg.caches:
-                            caches = clone_cache(caches)
+        try:
+            with ctx:
+                self.store.prefetch_ids(plan.models_used)
+                for st in steps:
+                    if st.model_id is not None:
+                        seg = self.store.get(st.model_id, requester=requester)
+                        seg_caches = self._segment_caches(seg)
+                        if caches is None:
+                            # plan anchor at 0: adopt a copy of the segment,
+                            # grown to the request capacity (later steps
+                            # write into it in place; the stored copy stays
+                            # intact)
+                            caches = pad_cache_to(seg_caches, cap)
+                            if caches is seg.caches:
+                                caches = clone_cache(caches)
+                        else:
+                            self._dispatch("insert", (cache_len(caches), seg.capacity))
+                            caches = insert_cache(caches, seg_caches, st.rng.lo)
+                        stats.tokens_reused += st.rng.size
                     else:
-                        self._dispatch("insert", (cache_len(caches), seg.capacity))
-                        caches = insert_cache(caches, seg_caches, st.rng.lo)
-                    stats.tokens_reused += st.rng.size
-                else:
-                    caches = self._fill_gap(doc, st.rng, caches, cap,
-                                            stats=stats, sink=sink)
+                        caches = self._fill_gap(doc, st.rng, caches, cap,
+                                                stats=stats, sink=sink)
+        except BaseException:
+            # the sync path's context manager releases its pins on any
+            # failure; a failed dispatch must not leak the deferred pins
+            self.abandon_build(pending)
+            raise
         if caches is not None:
             caches = pad_cache_to(caches, cap)
-        _sync(self.device)
+        if not defer:
+            _sync(self.device)
         stats.prefill_s += time.perf_counter() - t0
+        if defer:
+            return caches, plan, pending
         return caches, plan
+
+    def abandon_build(self, pending: Optional[PendingBuild]) -> None:
+        """Release a deferred build's pins without landing its insertions
+        (the exception path of the dispatch phase: its trees may come from
+        a failed computation; the next request re-prefills those chunks)."""
+        if pending is None or pending.finalized:
+            return
+        pending.finalized = True
+        pending.puts = []
+        self.store.unpin(pending.pin_token)
+
+    def finalize_build(self, pending: Optional[PendingBuild]) -> None:
+        """Finalize phase of a deferred build: land the recorded chunk
+        insertions in dispatch order and release the plan's pins.  Never
+        waits on the device; a build is finalized at most once."""
+        if pending is None or pending.finalized:
+            return
+        pending.finalized = True
+        for rng, seg in pending.puts:
+            self.store.put(rng, seg, doc_id=pending.doc_id,
+                           created_by=pending.requester)
+        pending.puts = []
+        self.store.unpin(pending.pin_token)
 
     def _fill_gap(self, doc, rng: Range, caches, cap: int, *, stats, sink):
         """Prefill one uncovered plan step [rng.lo, rng.hi) into ``caches``.
@@ -255,13 +338,17 @@ class PrefixCacheBuilder:
                            doc_id: str = DEFAULT_DOC,
                            stats: Optional[ServeStats] = None,
                            requester: Optional[int] = None,
-                           capacity: Optional[int] = None):
+                           capacity: Optional[int] = None,
+                           defer: bool = False):
         """Cache for [0, prefix_len) plus the logits of its last position.
 
         The last prefix token runs through a 1-token extend so its logits
         (the first sampling distribution) come out of the pass that
         completes the cache.  Pass ``capacity`` (e.g. prefix_len + n_new)
         so the caches are already padded to the decode bucket.
+
+        ``defer=True`` returns ``(logits, caches, plan, pending)``: the
+        dispatch phase of an async prefill ticket (see :meth:`build_prefix`).
         """
         stats = stats if stats is not None else ServeStats()
         if prefix_len < 2:
@@ -269,25 +356,40 @@ class PrefixCacheBuilder:
             self._dispatch("prefill", (prefix_len,))
             logits, caches = self.model.prefill(
                 self.params, {"tokens": self._tokens(doc[None, :prefix_len])})
-            _sync(self.device)
+            if not defer:
+                _sync(self.device)
             stats.prefill_s += time.perf_counter() - t0
             stats.tokens_computed += prefix_len
-            return logits, caches, baseline_plan(Range(0, prefix_len), self.cost)
-        caches, plan = self.build_prefix(
+            plan = baseline_plan(Range(0, prefix_len), self.cost)
+            if defer:   # nothing to insert or pin
+                return logits, caches, plan, PendingBuild(
+                    doc_id=doc_id, requester=requester)
+            return logits, caches, plan
+        built = self.build_prefix(
             doc, prefix_len - 1, doc_id=doc_id, stats=stats,
             materialize=True, requester=requester,
-            capacity=max(prefix_len, capacity or 0))
-        cur = cache_len(caches)
-        assert cur == 0 or cur >= prefix_len, (
-            f"cache capacity {cur} < prefix {prefix_len}")
-        t0 = time.perf_counter()
-        self._dispatch("extend", (cur, 1))
-        logits, caches = self.model.prefill_extend(
-            self.params, caches, self._tokens(doc[None, prefix_len - 1:prefix_len]),
-            self._scalar(prefix_len - 1))
-        _sync(self.device)
+            capacity=max(prefix_len, capacity or 0), defer=defer)
+        caches, plan = built[0], built[1]
+        try:
+            cur = cache_len(caches)
+            assert cur == 0 or cur >= prefix_len, (
+                f"cache capacity {cur} < prefix {prefix_len}")
+            t0 = time.perf_counter()
+            self._dispatch("extend", (cur, 1))
+            logits, caches = self.model.prefill_extend(
+                self.params, caches,
+                self._tokens(doc[None, prefix_len - 1:prefix_len]),
+                self._scalar(prefix_len - 1))
+        except BaseException:
+            if defer:       # a failed boundary extend must not leak pins
+                self.abandon_build(built[2])
+            raise
+        if not defer:
+            _sync(self.device)
         stats.prefill_s += time.perf_counter() - t0
         stats.tokens_computed += 1
+        if defer:
+            return logits, caches, plan, built[2]
         return logits, caches, plan
 
     def prefill_raw(self, batch):

@@ -16,8 +16,9 @@ Stored-segment invariants (shared with the JAX package):
   * running-state leaves hold the state at the segment's end; constant
     leaves are prefix-invariant.
 
-PyTorch slices are views, so every tree the store keeps is a copy: a
-stored segment never aliases a working cache that later steps update in
+PyTorch slices are views, so every tree the store keeps is a compact copy
+(each leaf owns storage of its own size): a stored segment never shares
+bytes with a working cache or a decode pack that later steps update in
 place.
 
 Residency: a segment lives on one rung of the device → host → disk
@@ -265,6 +266,12 @@ class SegmentStore(PinnedStore):
         self.evictions = 0
         self.evicted_bytes = 0
         self.cross_session_hits = 0
+        #: per-segment bound on fork references: beyond it, :meth:`alias`
+        #: skips the segment (the fork re-prefills it instead)
+        self.max_aliases = 64
+        self.alias_skips = 0
+        #: delta-update traffic: the segments rekey() moved
+        self.rekeyed_segments = 0
         #: per-document observed traffic: doc_id -> [segments put, hits]
         self._doc_stats: dict[str, list[int]] = {}
         self.host_budget = host_budget
@@ -380,6 +387,32 @@ class SegmentStore(PinnedStore):
     def _expected_reuses(self, entry: StoredSegment) -> float:
         return self.admission_prior(entry.doc_id)
 
+    def alias(self, src_doc: str, dst_doc: str, *,
+              upto: Optional[int] = None) -> int:
+        """Publish ``src_doc``'s segments ending at or before ``upto`` under
+        ``dst_doc``'s index too (no copy: one resident tree, several
+        plannable documents).  Decode write-back forks a document: the
+        continuation ``doc[:L] + generated`` has its own content key, but
+        every base segment within ``[0, L)`` is valid for it as it is.
+        Returns the number of segments aliased."""
+        if src_doc == dst_doc or src_doc not in self._indexes:
+            return 0
+        dst = self.index(dst_doc)
+        n = 0
+        for sid, rng in list(self.index(src_doc).items()):
+            if upto is not None and rng.hi > upto:
+                continue
+            seg = self._segs[sid]
+            if dst_doc in seg.doc_ids() or sid in dst:
+                continue
+            if len(seg.aliases) >= self.max_aliases:
+                self.alias_skips += 1
+                continue
+            seg.aliases.add(dst_doc)
+            dst.add(sid, rng)
+            n += 1
+        return n
+
     def release_doc(self, doc_id: str) -> int:
         """Forget a document id: drop its index and unreference its
         segments; segments only this document referenced are dropped from
@@ -433,6 +466,7 @@ class SegmentStore(PinnedStore):
             dst = self._doc_stats.setdefault(new_doc, [0, 0])
             dst[0] += stats[0]
             dst[1] += stats[1]
+        self.rekeyed_segments += moved
         return moved
 
     def nbytes(self, doc_id: Optional[str] = None) -> int:

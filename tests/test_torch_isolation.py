@@ -40,7 +40,8 @@ def test_port_imports_with_jax_blocked():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
-            "import repro_torch.serve, repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "import repro_torch.serve, repro_torch.serve.engine, repro_torch.serve.session\n"
+            "import repro_torch.launch.serve, repro_torch.data.edits\n"
             "import repro_torch.core.engine, repro_torch.data, repro_torch.launch.analytics\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")

@@ -13,6 +13,8 @@ the last prefix position's logits agree within ``INT8_LOGIT_ATOL``: the
 dequantized caches are bitwise equal across the packages (see
 ``tests/test_torch_quant.py``), so what remains is fp32 reduction order.
 """
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -158,14 +160,80 @@ def test_cli_single_session_on_cpu(capsys):
     assert "2 requests: reuse" in out
 
 
-@pytest.mark.parametrize("flag", [["--sessions", "2"], ["--shards", "2"],
-                                  ["--hedge-deadline", "1"], ["--edit-every", "1"],
-                                  ["--edit-kind", "insert"]])
+@pytest.mark.parametrize("flag", [["--shards", "2"], ["--hedge-deadline", "1"]])
 def test_cli_unported_flags_name_the_roadmap(flag):
     from repro_torch.launch import serve as cli
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main(["--arch", "deepseek-67b", "--reduced", "--device", "cpu", *flag])
+
+
+#: wall-clock values in the multi-session report, and what differs by
+#: design: the decode route's name (``repro``'s CPU route is "blocked",
+#: the port's the kernel's) and the attention FLOPs that route reads
+_MULTI_VOLATILE = (
+    (re.compile(r"[0-9.]+ tok/s wall"), "tok/s wall"),
+    (re.compile(r"mean join wait [0-9.]+ ms"), "mean join wait"),
+    (re.compile(r"\w+ attention\)"), "attention)"),
+    (re.compile(r"attn ~[0-9.]+ GFLOP"), "attn GFLOP"),
+)
+#: lines of the scheduler's schedule: ``repro``'s async prefill polls
+#: whether the CPU finished a build, so where it overlapped a build with
+#: decode its schedule followed the CPU's timing; under ``--sync-prefill``
+#: the schedule is the script's alone and is always compared
+_SCHEDULE = ("  scheduler:", "  decode packs", "  pipeline")
+
+
+def _multi_report(out: str) -> list:
+    keep = []
+    for line in out.splitlines():
+        for pat, repl in _MULTI_VOLATILE:
+            line = pat.sub(repl, line)
+        keep.append(line)
+    return keep
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--edit-every", "1"],
+    ["--edit-every", "1", "--edit-kind", "insert", "--segment-precision", "int8"],
+    ["--sync-prefill"],
+], ids=["sessions", "edit_every", "edit_kind_int8", "sync_prefill"])
+def test_cli_multi_session_matches_reference(flags, capsys, monkeypatch):
+    """``--sessions 4 --shared-docs 2`` on the CPU (with edit traffic, and
+    with an int8 store whose reuse path runs ``quant_kv``'s plain version):
+    the port prints ``python -m repro.launch.serve``'s lines with the same
+    flags, wall-clock values and the decode route aside.  Under
+    ``--sync-prefill`` the scheduler's lines are compared too."""
+    from repro.launch import serve as jax_cli
+    from repro_torch.launch import serve as cli
+
+    common = ["--arch", "deepseek-67b", "--reduced", "--doc-len", "512",
+              "--sessions", "4", "--shared-docs", "2", "--requests", "2",
+              "--new-tokens", "5", "--chunk-tokens", "64",
+              "--byte-budget", "300000", *flags]
+    cli.main(["--device", "cpu", *common])
+    port = _multi_report(capsys.readouterr().out)
+    monkeypatch.setattr("sys.argv", ["serve", *common])
+    jax_cli.main()
+    ref = _multi_report(capsys.readouterr().out)
+    assert port[0] == "4 sessions × 2 requests (2 on a shared doc):"
+    if "--sync-prefill" in flags:
+        assert sum(line.startswith(_SCHEDULE) for line in port) == len(_SCHEDULE)
+        assert any(line.startswith("  pipeline (sync prefill): 0 builds launched")
+                   for line in port)
+    else:
+        assert any(line.startswith("  pipeline (async prefill): 8 builds launched, "
+                                   "8 joined") for line in port)
+    if "--sync-prefill" not in flags and not any("0 decode rounds overlapped" in line
+                                                 for line in ref):
+        port = [line for line in port if not line.startswith(_SCHEDULE)]
+        ref = [line for line in ref if not line.startswith(_SCHEDULE)]
+    assert port == ref
+    if "--edit-every" in flags:
+        assert any(line.startswith("  edits: 8 applied") for line in port)
+    if "int8" in flags:
+        assert any(re.match(r"  precision \(int8 policy\): [1-9]", line) for line in port)
 
 
 def test_cli_without_a_card_needs_device_cpu():
