@@ -15,6 +15,12 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
      rtol/atol 2e-2, and element by element within one bf16 ulp + 1e-6);
      extend also at nb 1 and nb 100 (row blocks straddling two heads) and
      bitwise invariant to padded capacity (caps 2176 vs 4096); the decode
+     extend's MLA form (``ops.extend_attention_mla``: packed q·k width 192
+     and v width 128 at H 128, capacity 4160, nb 128 / 1 / 100 and t_real
+     128 / 2049 / 4096; then q·k 24 / v 16) against the fp32 plain version
+     with the same tolerances and bitwise invariant to capacity (2176 vs
+     4160), timed beside SDPA on the same mask and beside the packing it
+     needs; the decode
      kernel also against the plain form of its split-KV algorithm, bitwise
      invariant to padded capacity within one split and across several
      (caps 2048 vs 8192), and bitwise the same for a row alone and in a
@@ -35,6 +41,11 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
      as capacity-split ones, async prefill gives sync prefill's sampled
      streams and store (payloads bitwise), and a deferred build's dispatch
      makes no synchronising call (``torch.cuda.set_sync_debug_mode``);
+     then reduced ``deepseek-v2-236b`` (MLA + MoE) the same two ways as
+     ``deepseek-67b``: fp32 with a plain store and an int8 tiered store
+     (identical tokens, plans and stores, logits within
+     ``REDUCED_FP32_LOGIT_ATOL``), and bf16 (logits within
+     ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps);
   4. the main path at full width: ``deepseek-67b`` widths, bf16, depth cut
      from 95 to 24 layers so the weights fit one 80 GB card, a 4096-token
      document, chunk 128, requests with prefixes 2048, 4096, 3072 (16 new
@@ -73,6 +84,15 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
      (document, prefix, 16), and where one parts the single run's top-2
      logit gap there must be within ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps
      of its largest logit.
+ 10. the MLA main path at full width, after phase 4's model is freed:
+     ``deepseek-v2-236b`` widths (MLA, 160 routed experts top-6 plus 2
+     shared), bf16, depth cut from 60 to 4 layers (1 dense + 3 MoE, 13.3 B
+     parameters), the same document and requests as phase 4; requests 2
+     and 3 must reuse stored segments, the replay must give identical
+     tokens, the extend kernel's launches must equal 4 x the extend calls,
+     and the logits must be finite; then ``torch.profiler`` over one
+     extend step and one decode step, with one MoE layer's device time
+     measured alone.
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -100,8 +120,9 @@ segment fit, i.e. per uncovered step, baseline query and warm-up model).
 Any failure exits non-zero.  The last two lines are the ``nvidia-smi``
 line and ``{"ok": true, "device": {...}}``; the line before them lists
 every kernel with its launches (on its own main path: batched serving,
-phase 9, for the attention kernels, the residency phase for the dequant
-kernel, analytics for the statistics kernels) and times.
+phase 9, for the attention kernels, the MLA main path, phase 10, for
+extend's MLA form, the residency phase for the dequant kernel, analytics
+for the statistics kernels) and times.
 """
 from __future__ import annotations
 
@@ -124,6 +145,9 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12,          # CUDA-core fp32
               torch.bfloat16: 989e12}        # dense bf16 tensor cores
 FULL_LAYERS = 24
+#: phase 10's depth: deepseek-v2-236b cut from 60 layers to its first dense
+#: layer and three MoE layers (13.3 B parameters, 24.8 GiB in bf16)
+MLA_LAYERS = 4
 
 
 def fail(msg: str) -> None:
@@ -134,6 +158,29 @@ def fail(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         fail(msg)
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel from ``nvcc -Xptxas=-v``: its name with
+    its template arguments, registers and spills."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            m = re.search(r"\d+([a-z_]+kernel)(I(?:Li\d+E)+E)?", mangled)
+            name = mangled[:60] if m is None else m.group(1) + (
+                "" if m.group(2) is None
+                else "<" + ", ".join(re.findall(r"Li(\d+)E", m.group(2))) + ">")
+            spill = ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line and name is not None:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -277,6 +324,109 @@ def extend_phase(dev, timer) -> dict:
     return {"name": "extend_attention", "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": max(e for (dt, *_), e in err.items() if dt == dtype),
+            "shape": shape}
+
+
+def mla_operands(b, nb, h, cap, widths, dtype, dev, seed):
+    """q_nope, q_rope, k_nope, k_rope (shared across heads), v."""
+    nope, rope, hv = widths
+    return (randn((b, nb, h, nope), dtype, dev, seed),
+            randn((b, nb, h, rope), dtype, dev, seed + 1),
+            randn((b, cap, h, nope), dtype, dev, seed + 2),
+            randn((b, cap, rope), dtype, dev, seed + 3),
+            randn((b, cap, h, hv), dtype, dev, seed + 4))
+
+
+def extend_mla_phase(dev, timer) -> dict:
+    """Extend's MLA form (``ops.extend_attention_mla``: q·k width nope + rope,
+    v width apart, G 1) against the fp32 plain version on the same packed
+    operands, at full width (H 128, 192 / 128, capacity 4160) and at the
+    reduced widths (24 / 16); bitwise invariant to capacity; then timed at
+    the MLA main path's largest chunk beside SDPA on the same mask and the
+    packing copy."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.common import within_bf16_ulp
+    from repro_torch.kernels.extend_attention.ops import (extend_attention,
+                                                          extend_attention_mla, pack_mla)
+    from repro_torch.kernels.extend_attention.ref import extend_attention_ref
+
+    full, small_w = (128, 64, 128), (16, 8, 16)
+    err = {}
+    for widths, b, h, cap in ((full, 1, 128, 4160), (small_w, 2, 4, 4160)):
+        for dtype, (rtol, atol) in ((torch.float32, (1e-4, 1e-5)),
+                                    (torch.bfloat16, (2e-2, 2e-2))):
+            for nb in (128, 1, 100):
+                qn, qr, kn, kr, v = mla_operands(b, nb, h, cap, widths, dtype, dev, 11)
+                q, k = pack_mla(qn, qr, kn, kr)
+                for t_real in (128, 2049, 4096):
+                    got = extend_attention_mla(qn, qr, kn, kr, v, t_real=t_real)
+                    want = extend_attention_ref(q.float(), k.float(), v.float(),
+                                                t_real=t_real)
+                    torch.cuda.synchronize()
+                    ok, e = within(got, want, rtol, atol)
+                    line = (f"  extend MLA {widths[0] + widths[1]}/{widths[2]} H{h} "
+                            f"{str(dtype)[6:]:8s} nb {nb:3d} t_real {t_real:4d}: max |err| "
+                            f"{e:.3g} (rtol {rtol}, atol {atol})")
+                    ulp_ok, worst = True, 0.0
+                    if dtype == torch.bfloat16:
+                        ulp_ok, worst = within_bf16_ulp(got, want)
+                        line += f"; error up to {worst:.3f}x one bf16 ulp + 1e-6"
+                    print(line)
+                    check(ok and tuple(got.shape) == (b, nb, h, widths[2]),
+                          f"extend kernel's MLA form disagrees with its plain version "
+                          f"({widths}, {dtype}, nb {nb}, t_real {t_real}, max err {e})")
+                    check(ulp_ok, f"bf16 extend kernel's MLA form strays past one bf16 "
+                                  f"ulp ({widths}, nb {nb}, t_real {t_real}, {worst:.3f}x)")
+                    err[(widths, dtype, nb, t_real)] = e
+                del q, k, qn, qr, kn, kr, v
+            # bit-invariance to padded capacity, garbage tail: 2176 vs 4160
+            small = 2176
+            qn, qr, kn, kr, v = mla_operands(b, 128, h, cap, widths, dtype, dev, 21)
+            kn, kr, v = kn * 100, kr * 100, v * 100
+            ks, krs, vs = (x[:, :small].contiguous() for x in (kn, kr, v))
+            for t_real in (2100, small):
+                same = torch.equal(extend_attention_mla(qn, qr, ks, krs, vs, t_real=t_real),
+                                   extend_attention_mla(qn, qr, kn, kr, v, t_real=t_real))
+                print(f"  extend MLA {widths[0] + widths[1]}/{widths[2]} {str(dtype)[6:]:8s} "
+                      f"bit-invariant caps {small} vs {cap}, t_real {t_real}: {same}")
+                check(same, f"extend's MLA form depends on padded capacity ({widths}, "
+                            f"{dtype}, t_real {t_real})")
+            del qn, qr, kn, kr, v, ks, krs, vs
+
+    # timing at the MLA main path's largest chunk: H 128, nb 128, t_real 4096,
+    # capacity 4160, bf16; the kernel on the packed operands, the packing,
+    # and the whole extend_attention_mla call
+    dtype, b, h, nb, cap, t_real = torch.bfloat16, 1, 128, 128, 4160, 4096
+    qn, qr, kn, kr, v = mla_operands(b, nb, h, cap, full, dtype, dev, 31)
+    q, k = pack_mla(qn, qr, kn, kr)
+    t_dev = torch.tensor(t_real, dtype=torch.int32, device=dev)
+    call = lambda: extend_attention(q, k, v, t_real=t_dev)  # noqa: E731
+    split = call_split(timer, call)
+    pack_ms = timer.ms(lambda: pack_mla(qn, qr, kn, kr))
+    mla_ms = timer.ms(lambda: extend_attention_mla(qn, qr, kn, kr, v, t_real=t_dev))
+    plain_ms = timer.ms(lambda: extend_attention_ref(q, k, v, t_real=t_real))
+    q_pos = torch.arange(t_real - nb, t_real, device=dev)
+    mask = torch.arange(cap, device=dev)[None, :] <= q_pos[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib = lambda: sdpa(qt, kt, vt, attn_mask=mask)  # noqa: E731
+    library_ms = library_time(timer, lib, "extend MLA")
+    lib_dev = None if library_ms is None else device_ms(lib, "")
+    keys = float((q_pos + 1).sum())            # causal keys this run needs
+    hqk, hv = full[0] + full[1], full[2]
+    flops = 2.0 * (hqk + hv) * h * b * keys
+    nbytes = 2 * (q.numel() + b * t_real * h * (hqk + hv) + b * nb * h * hv) + 4
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    shape = f"B{b} H{h} G1 q·k{hqk} v{hv} nb{nb} cap{cap} t_real{t_real} bf16"
+    lib_s = "n/a" if library_ms is None else f"{library_ms:.4f} ms ({lib_dev:.4f} ms device)"
+    print(f"  extend MLA timing [{shape}]: kernel {split_line(split)}; bound "
+          f"{bound_ms:.6f} ms ({bound_by}); plain {plain_ms:.4f} ms; sdpa {lib_s}; "
+          f"packing q and k {pack_ms:.4f} ms ({2 * k.numel() / 1e6:.0f} MB of packed K "
+          f"written); extend_attention_mla (packing + kernel) {mla_ms:.4f} ms")
+    return {"name": "extend_attention_mla", "ms": split["call"], "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": max(e for (w, dt, *_), e in err.items()
+                               if w == full and dt == dtype),
             "shape": shape}
 
 
@@ -956,15 +1106,22 @@ def quant_kv_phase(dev, timer) -> dict:
 # phase 3: reduced model, card vs CPU
 # ---------------------------------------------------------------------------
 
-def reduced_parity(dev) -> None:
+#: phase 3's fp32 runs: the card's last-position logits against the CPU's
+#: (cuBLAS and the kernels sum in another order than the CPU; on the CPU
+#: the port's fp32 logits stay within 2e-7 of repro's)
+REDUCED_FP32_LOGIT_ATOL = 1e-4
+
+
+def reduced_parity(dev, arch: str = "deepseek-67b") -> None:
     from repro_torch.configs import get_config, reduced
     from repro_torch.core.descriptors import Range
+    from repro_torch.kernels.extend_attention import kernel as ek
     from repro_torch.models.common import tree_map_with_path
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.kv_cache import SegmentStore
 
-    cfg = reduced(get_config("deepseek-67b"))
+    cfg = reduced(get_config(arch))
     cpu_model = LM(cfg, device="cpu")
     cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
     gpu_model = LM(cfg, device=dev)
@@ -987,6 +1144,7 @@ def reduced_parity(dev) -> None:
                     spill_dir=spill / f"{name}-{len(engines)}", device=m.device, **store_kw)
                 engines[name] = ServeEngine(m, p, doc, chunk_tokens=64, device=m.device,
                                             **({} if store is None else {"store": store}))
+            launches = ek.KERNEL.launches
             for prefix, n_new in ((200, 4), (256, 4), (130, 4), (256, 4)):
                 out = {}
                 for name, eng in engines.items():
@@ -998,6 +1156,12 @@ def reduced_parity(dev) -> None:
                 check(out["cuda"] == out["cpu"],
                       f"reduced model ({label}): card and CPU disagree at prefix "
                       f"{prefix}: {out}")
+            launches = ek.KERNEL.launches - launches
+            widths = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                       cfg.mla.v_head_dim) if cfg.mla else (cfg.head_dim, cfg.head_dim))
+            print(f"  {label}: extend kernel launches on the card at (q·k, v) widths "
+                  f"{widths}: {launches}")
+            check(launches > 0, f"reduced model ({label}): the card ran no extend kernel")
             st = {}
             for name, eng in engines.items():
                 eng.store.flush_saves()
@@ -1015,9 +1179,18 @@ def reduced_parity(dev) -> None:
                 check(st["cuda"][1] > 0 and min(st["cuda"][3].values()) > 0
                       and min(st["cuda"][4].values()) > 0,
                       f"reduced int8 tiered run skipped a tier or the dequant: {st['cuda']}")
+            logits = {name: torch.cat([
+                eng.builder.prefix_with_logits(doc, n, doc_id=eng.doc_id,
+                                               capacity=n + 8)[0].float().cpu()
+                for n in (200, 256, 130)]) for name, eng in engines.items()}
+            d = float((logits["cuda"] - logits["cpu"]).abs().max())
+            print(f"  {label}: logits at prefixes 200, 256, 130: card vs CPU max |d| "
+                  f"{d:.3g} (limit {REDUCED_FP32_LOGIT_ATOL})")
+            check(d <= REDUCED_FP32_LOGIT_ATOL,
+                  f"reduced model ({label}): card and CPU logits differ by {d}")
     finally:
         shutil.rmtree(spill, ignore_errors=True)
-    print("  reduced cuda-vs-cpu: identical plans, tokens and stores: True")
+    print(f"  reduced {arch} cuda-vs-cpu: identical plans, tokens and stores: True")
 
 
 #: phase 3's bf16 run: the card's logits within this many bf16 ulps of the
@@ -1030,18 +1203,18 @@ def reduced_parity(dev) -> None:
 REDUCED_BF16_LOGIT_ULPS = 4
 
 
-def reduced_bf16_parity(dev) -> None:
-    """Reduced ``deepseek-67b`` with bf16 params and compute: the card (the
-    bf16 kernels) against the CPU's plain route (fp32 attention math, fp32
-    P), at the logits of three prefixes and in greedy streams; the CPU's
-    fp32 run on the same weights gives the scale of bf16 rounding."""
+def reduced_bf16_parity(dev, arch: str = "deepseek-67b") -> None:
+    """Reduced ``arch`` with bf16 params and compute: the card (the bf16
+    kernels) against the CPU's plain route (fp32 attention math, fp32 P),
+    at the logits of three prefixes and in greedy streams; the CPU's fp32
+    run on the same weights gives the scale of bf16 rounding."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.common import bf16_ulp
     from repro_torch.models.common import tree_map_with_path
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = dataclasses.replace(reduced(get_config("deepseek-67b")),
+    cfg = dataclasses.replace(reduced(get_config(arch)),
                               param_dtype="bfloat16", compute_dtype="bfloat16")
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     cpu_params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
@@ -1292,10 +1465,11 @@ PORT_KERNELS = tuple(f"void (anonymous namespace)::{name}" for name in
                      ("extend_mma_kernel", "split_kernel", "combine_kernel"))
 
 
-def profile_steps(label: str, steps: int, fn, dev) -> None:
+def profile_steps(label: str, steps: int, fn, dev) -> dict:
     """torch.profiler over ``steps`` calls of ``fn``: wall and device busy
     time per call, the top kernels and the share of the port's attention
-    kernels."""
+    kernels.  Returns those three per call, in ms (empty where the profiler
+    saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1314,7 +1488,7 @@ def profile_steps(label: str, steps: int, fn, dev) -> None:
     if not rows:
         print(f"  {label}: wall {wall:.2f} ms; the profiler saw no device "
               f"time (device split not measured)")
-        return
+        return {}
     print(f"  {label}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
           f"({busy / wall:.0%}), idle {max(wall - busy, 0.0):.2f} ms")
     ranked = sorted(rows, key=lambda r: -r[1])
@@ -1325,6 +1499,7 @@ def profile_steps(label: str, steps: int, fn, dev) -> None:
     ours = sum(ms for key, ms, _ in rows if key.startswith(PORT_KERNELS))
     print(f"    the port's attention kernels: {ours:.3f} ms of {busy:.2f} ms busy "
           f"({ours / busy:.1%}); the rest {busy - ours:.2f} ms")
+    return {"wall": wall, "busy": busy, "ours": ours}
 
 
 def where_time_goes(eng, dev) -> None:
@@ -1344,6 +1519,136 @@ def where_time_goes(eng, dev) -> None:
                   lambda: model.decode_step(params, caches, tok, pos), dev)
     profile_steps("extend 128 tokens", 1,
                   lambda: model.prefill_extend(params, ext, chunk, start), dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the MLA main path at full width
+# ---------------------------------------------------------------------------
+
+def mla_main_path(dev) -> dict:
+    """``deepseek-v2-236b`` at full width, depth cut to ``MLA_LAYERS``, bf16,
+    through ``ServeEngine``: phase 4's document and requests; returns the
+    extend kernel's launches (the MLA form's main path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.extend_attention import kernel as ek
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.engine import ServeEngine
+
+    base = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(base, n_layers=MLA_LAYERS)
+    m, moe = cfg.mla, cfg.moe
+    print(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}, MLA q_lora "
+          f"{m.q_lora_rank} kv_lora {m.kv_lora_rank} q·k {m.qk_nope_head_dim}+"
+          f"{m.qk_rope_head_dim} v {m.v_head_dim}, MoE {moe.n_experts} experts top-"
+          f"{moe.top_k} d_ff {moe.d_ff_expert} + {moe.n_shared} shared, dense d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}; n_layers cut "
+          f"{base.n_layers} -> {cfg.n_layers} to fit one 80 GB card")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    kinds = [f"{spec.mixer}/{spec.mlp} x{n}" for period, n in model.segments
+             for spec in period]
+    print(f"  init: {n_params / 1e9:.2f} B params on the card in "
+          f"{time.perf_counter() - t0:.1f} s; layers {kinds}")
+    mla_layers = sum(n for period, n in model.segments for spec in period
+                     if spec.mixer == "mla")
+    doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 4096).astype(np.int32)
+    eng = ServeEngine(model, params, doc, chunk_tokens=128, device=dev)
+    extend_calls = 0
+    prefill_extend = model.prefill_extend
+
+    def counted(*args, **kw):               # prefill_extend_many calls it per chunk
+        nonlocal extend_calls
+        extend_calls += 1
+        return prefill_extend(*args, **kw)
+
+    model.prefill_extend = counted
+    ek.KERNEL.launches = 0
+    results = []
+    for prefix in (2048, 4096, 3072, 2048):
+        s0 = dataclasses.replace(eng.stats)
+        toks, plan = eng.generate(prefix, 16)
+        st = eng.stats
+        pre = st.prefill_s - s0.prefill_s
+        dec = st.decode_s - s0.decode_s
+        reused = st.tokens_reused - s0.tokens_reused
+        print(f"  request prefix {prefix}: prefill {pre:.3f} s "
+              f"({reused} tokens reused, {len(plan.models_used)} segments), "
+              f"decode {16 / dec:.1f} tok/s, tokens {toks[:8]}")
+        check(all(0 <= t < cfg.vocab_size for t in toks), "token out of range")
+        results.append((prefix, toks, plan))
+    logits, _, _ = eng.builder.prefix_with_logits(doc, 3072, doc_id=eng.doc_id,
+                                                  capacity=3088)
+    torch.cuda.synchronize(dev)
+    launches = ek.KERNEL.launches
+    model.prefill_extend = prefill_extend
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"full-width MLA logits not finite or mis-shaped: {tuple(logits.shape)}")
+    check(all(len(r[2].models_used) > 0 for r in results[1:3]),
+          "MLA requests 2 and 3 did not reuse stored segments")
+    check(results[3][1] == results[0][1],
+          "MLA replayed request from stored segments changed its tokens")
+    print(f"  extend launches {launches} = {mla_layers} MLA layers x {extend_calls} "
+          f"extend calls: {launches == mla_layers * extend_calls}")
+    check(extend_calls > 0 and launches == mla_layers * extend_calls,
+          f"MLA extend launches {launches} != {mla_layers} x {extend_calls} extend calls")
+    mem = torch.cuda.max_memory_allocated(dev)
+    print("  replay of prefix 2048 from the store: identical tokens: True")
+    print(f"  store: {len(eng.store)} segments, {eng.store.nbytes() / 2**20:.1f} MiB; "
+          f"max memory allocated {mem / 2**30:.2f} GiB")
+    mla_where_time_goes(eng, dev)
+    return {"extend_attention_mla": launches}
+
+
+def mla_where_time_goes(eng, dev) -> None:
+    """torch.profiler over one decode step at position 3072 and one
+    128-token extend at 2048, as phase 5; then one MoE layer alone on the
+    same number of tokens, so the step splits into the attention kernel,
+    the MoE layers and the rest, beside the host's idle time."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import _layer_params, _moe_params
+
+    model, params, doc, cfg = eng.model, eng.params, eng.doc, eng.model.cfg
+    logits, caches, _ = eng.builder.prefix_with_logits(
+        doc, 3072, doc_id=eng.doc_id, capacity=3088)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    pos = torch.tensor([3072], dtype=torch.int32, device=dev)
+    ext, _ = eng.builder.build_prefix(doc, 2048, doc_id=eng.doc_id,
+                                      materialize=False, capacity=2176)
+    chunk = torch.as_tensor(doc[None, 2048:2176].astype(np.int64), device=dev)
+    start = torch.tensor(2048, dtype=torch.int32, device=dev)
+    steps = {
+        "decode": profile_steps("MLA decode step", 4,
+                                lambda: model.decode_step(params, caches, tok, pos), dev),
+        "extend": profile_steps("MLA extend 128 tokens", 1,
+                                lambda: model.prefill_extend(params, ext, chunk, start), dev)}
+    seg = next(s for s, (period, _) in enumerate(model.segments) if period[0].mlp == "moe")
+    n_moe = model.segments[seg][1]
+    p = _moe_params(_layer_params(params["segments"][seg]["p0"], 0)["mlp"])
+    for name, n in (("decode", 1), ("extend", 128)):
+        hn = randn((1, n, cfg.d_model), torch.bfloat16, dev, 5)
+        layer = lambda: moe_mod.moe_ffn(p, cfg.moe, hn, activation=cfg.activation)  # noqa: E731
+        moe_ms, kernels = device_profile(layer, "", launches=5)
+        # cuBLAS's GEMM kernels on Hopper are named nvjet_* (or *gemm*)
+        gemm_ms = sum(device_profile(layer, name, launches=5)[0]
+                      for name in ("nvjet", "gemm"))
+        st = steps[name]
+        if not st:
+            print(f"  MLA {name}: one MoE layer on {n} tokens {moe_ms:.3f} ms of device time "
+                  f"({gemm_ms:.3f} ms in GEMM kernels); step split not measured")
+            continue
+        moe_all = moe_ms * n_moe
+        print(f"  MLA {name} step split: wall {st['wall']:.2f} ms = device busy "
+              f"{st['busy']:.2f} ms + host idle {max(st['wall'] - st['busy'], 0.0):.2f} ms; "
+              f"busy = extend kernel {st['ours']:.3f} ms + {n_moe} MoE layers "
+              f"{moe_all:.2f} ms (one layer alone on {n} tokens: {moe_ms:.3f} ms, "
+              f"{gemm_ms:.3f} ms of it in GEMM kernels, {kernels:g} device activities) "
+              f"+ the rest {st['busy'] - st['ours'] - moe_all:.2f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -2047,13 +2352,12 @@ def main() -> int:
     print(f"[build] {len(build.sources())} CUDA sources ready in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for stem, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {stem}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"    {stem}: {line}")
 
     timer = Timer(dev)
     print("[2] kernels vs plain versions on the card")
-    rows = [extend_phase(dev, timer), decode_phase(dev, timer),
+    rows = [extend_phase(dev, timer), extend_mla_phase(dev, timer), decode_phase(dev, timer),
             quant_kv_phase(dev, timer), linreg_stats_phase(dev, timer),
             nb_stats_phase(dev, timer), logreg_sgd_phase(dev, timer)]
     for r in rows:
@@ -2070,6 +2374,10 @@ def main() -> int:
     print("    reduced deepseek-67b (fp32): SessionManager, card vs CPU")
     reduced_sessions(dev)
     deferred_build_waits_for_nothing(dev)
+    print("    reduced deepseek-v2-236b (MLA + MoE, fp32): card vs CPU")
+    reduced_parity(dev, "deepseek-v2-236b")
+    print("    reduced deepseek-v2-236b (bf16 params and compute): card vs CPU")
+    reduced_bf16_parity(dev, "deepseek-v2-236b")
 
     print(f"[4] full-width main path ({FULL_LAYERS} layers, bf16)")
     counts, eng, ref = main_path(dev)
@@ -2082,6 +2390,9 @@ def main() -> int:
     counts.update(sessions_phase(eng, dev))
     del eng, ref
     torch.cuda.empty_cache()
+    print(f"[10] MLA main path at full width (deepseek-v2-236b, {MLA_LAYERS} layers, bf16)")
+    counts.update(mla_main_path(dev))
+    torch.cuda.empty_cache()
 
     print("[7] analytics engine (200K x 10): card vs CPU")
     analytics_parity(dev)
@@ -2091,6 +2402,9 @@ def main() -> int:
     sources = {
         "extend_attention": ("src/repro_torch/kernels/extend_attention/csrc/extend_attention.cu",
                              "src/repro/kernels/extend_attention/kernel.py:108"),
+        "extend_attention_mla": ("src/repro_torch/kernels/extend_attention/csrc/"
+                                 "extend_attention.cu",
+                                 "src/repro/kernels/extend_attention/kernel.py:108"),
         "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:103"),
         "quant_kv": ("src/repro_torch/kernels/quant_kv/csrc/quant_kv.cu",

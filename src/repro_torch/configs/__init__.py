@@ -9,8 +9,10 @@ import dataclasses
 
 from .base import ArchConfig, MLAConfig, MoEConfig, SSMConfig
 from .deepseek_67b import CONFIG as _deepseek_67b
+from .deepseek_v2_236b import CONFIG as _deepseek_v2_236b
 
-ARCHS: dict[str, ArchConfig] = {c.name: c for c in [_deepseek_67b]}
+ARCHS: dict[str, ArchConfig] = {c.name: c for c in [_deepseek_67b,
+                                                    _deepseek_v2_236b]}
 
 
 def get_config(name: str) -> ArchConfig:

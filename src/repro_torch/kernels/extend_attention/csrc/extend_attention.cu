@@ -7,7 +7,13 @@
 // mask  k_pos <= q_pos && k_pos < t_real,  q_pos = t_real - nb + i.
 //
 // Layout.  The kernel reads the model's own tensors, no transposed copies:
-//   q, out  (B, nb, H, hd)     k, v  (B, T, KV, hd)     t_real  int32[1] (device)
+//   q  (B, nb, H, HQK)   k  (B, T, KV, HQK)   v  (B, T, KV, HV)
+//   out  (B, nb, H, HV)  t_real  int32[1] (device)
+// HQK, the q.k width, and HV, the v width, are template parameters: equal for
+// the GQA layout (ops.py::extend_attention), (HQK, HV) = (nope + rope, v) for
+// MLA's packed [nope || rope] layout (ops.py::extend_attention_mla: 192, 128
+// at full width, 24, 16 reduced), where H = KV (G = 1).  The scale is
+// HQK^-0.5, which for MLA is (nope + rope)^-0.5.
 // GQA: query head h = kvh*G + g shares KV head kvh.  Block (stream, tile) with
 // stream = b*KV + kvh holds BM of the stream's G*nb rows, stacked as row
 // r = g*nb + i (the TPU kernel's order), so the KV stream is read once per
@@ -18,6 +24,10 @@
 // 4*hd bytes (bf16 K and V rows) and feeds G*nb rows x 4*hd FLOPs, i.e.
 // G*nb = 1024 FLOPs per byte, far above the H100's ~295 FLOP/byte ridge: the
 // function is bound by operations (989 TFLOP/s of bf16 tensor-core work).
+// MLA (G=1, nb=128, 192/128) brings 2*(HQK + HV) = 640 bytes per position
+// and head for 2*nb*(HQK + HV) = 81,920 FLOPs: 128 FLOPs per byte, below the
+// ridge, so there the function is bound by bytes, and each K/V tile is read
+// once per 64-row block (twice at nb = 128).
 //
 // Two kernels, chosen by dtype.
 //
@@ -28,17 +38,22 @@
 // even and the odd KV tiles, each with its own ring, barrier and online
 // softmax, merged (group 0, then group 1) at the end.  Two warps per
 // scheduler hide each other's mma, shuffle and barrier latency.
-//  - Q: the block's 64 x hd q rows are gathered into shared memory once by
-//    cp.async (each stacked row is one hd-wide row of q[b, i, kvh*G + g])
+//  - Q: the block's 64 x HQK q rows are gathered into shared memory once by
+//    cp.async (each stacked row is one HQK-wide row of q[b, i, kvh*G + g])
 //    and held in registers as A fragments (ldmatrix) for the whole walk.
-//    The hd^-0.5 scale is applied to S in fp32 (bf16 cannot hold
+//    A q.k width that is not a multiple of the mma's k-step of 16 (MLA's
+//    reduced 24) is staged as KD = 32 columns for q and K alike, the last
+//    ones zeroed once: they add exact zeros to S.
+//    The HQK^-0.5 scale is applied to S in fp32 (bf16 cannot hold
 //    q * scale), with log2 e folded in for exp2.
 //  - K, V: 64-position tiles through each group's two-slot ring in shared
 //    memory, cp.async.cg at 16 bytes a thread, rows padded by 16 bytes (an
-//    odd number of 16-byte chunks, so ldmatrix phases hit distinct banks).
+//    odd number of 16-byte chunks, so ldmatrix phases hit distinct banks);
+//    K rows are KD + 8 wide and V rows HV + 8, so at MLA's 192/128 the q
+//    tile and two groups' two-slot rings take 197,632 bytes.
 //    Positions at or past t_real are zero-filled by a copy that reads 0
 //    bytes, so nothing past t_real enters a sum, whatever the padding holds.
-//  - S = Q K^T: K is the B operand through ldmatrix (a (pos, hd) row-major
+//  - S = Q K^T: K is the B operand through ldmatrix (a (pos, KD) row-major
 //    tile is B in "col" layout).  The mask is applied only on tiles that
 //    reach past the warp's least q_pos; a warp skips tiles past its greatest
 //    q_pos (they would add exact zeros), and the block's walk ends with the
@@ -57,7 +72,7 @@
 //  - Epilogue: acc / max(l, 1e-30), written as bf16 pairs to
 //    out[b, i, kvh*G + g]; rows past G*nb are skipped.
 // Against the bound: the three-term P makes the issued tensor-core work 2x
-// the function's (S: 2*hd, P V: 3 * 2*hd FLOPs per score); the walk stops
+// the function's at HQK = HV (S: 2*HQK, P V: 3 * 2*HV FLOPs per score); the walk stops
 // at the causal edge and warps skip the tiles past their rows, so no tile
 // above the diagonal is multiplied; every K/V tile is staged once per block
 // and read by all 64 rows; the next tile of each group is in flight while
@@ -67,7 +82,7 @@
 // fp32: extend_kernel, fp32 math on the CUDA cores (67 TFLOP/s peak).  Each
 // block keeps its scaled q tile in shared memory for the whole KV walk,
 // every K/V tile it stages is reused by all BM rows, registers hold an
-// 8-row x 2-column score tile and an 8-row x hd/32 accumulator per lane (8
+// 8-row x 2-column score tile and an 8-row x HV/32 accumulator per lane (8
 // warps, two per scheduler), the next K/V tile is fetched into registers
 // with 16-byte loads while the current one is computed, and the walk stops
 // after ceil(t_real / BN) tiles (tiles past t_real would add exact zeros,
@@ -106,65 +121,78 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HQK, int HV>
 constexpr size_t smem_bytes() {
   // q tile + K tile (row pad +1 against bank conflicts) + V tile + P tile
-  return sizeof(float) * (size_t)(BM * HD + BN * (HD + 1) + BN * HD + BM * BN);
+  return sizeof(float) * (size_t)(BM * HQK + BN * (HQK + 1) + BN * HV + BM * BN);
 }
 
-// One K/V tile in flight: each thread holds VPT 16-byte vectors of K and V.
-template <int HD>
-struct TileRegs {
+// One tile of W-wide rows in flight: each thread holds VPT 16-byte vectors.
+template <int W>
+struct RowRegs {
   static constexpr int VEC = 4;                         // floats per vector
-  static constexpr int VPR = HD / VEC;                  // vectors per row
+  static constexpr int VPR = W / VEC;                   // vectors per row
   static constexpr int VPT = (BN * VPR + NT - 1) / NT;  // vectors per thread
-  uint4 k[VPT], v[VPT];
+  uint4 x[VPT];
 
-  __device__ __forceinline__ void fetch(const float* __restrict__ kp,
-                                        const float* __restrict__ vp, int b,
+  __device__ __forceinline__ void fetch(const float* __restrict__ p, int b,
                                         int kvh, int KV, int T_cap, int t0) {
 #pragma unroll
     for (int i = 0; i < VPT; ++i) {
       const int idx = threadIdx.x + i * NT;
       const int c = idx / VPR, w = idx % VPR, t = t0 + c;
-      k[i] = v[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < BN * VPR && t < T_cap) {
-        const size_t off = (((size_t)b * T_cap + t) * KV + kvh) * HD + w * VEC;
-        k[i] = *reinterpret_cast<const uint4*>(kp + off);
-        v[i] = *reinterpret_cast<const uint4*>(vp + off);
-      }
+      x[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (idx < BN * VPR && t < T_cap)
+        x[i] = *reinterpret_cast<const uint4*>(
+            p + (((size_t)b * T_cap + t) * KV + kvh) * W + w * VEC);
     }
   }
 
-  __device__ __forceinline__ void put(float* k_s, float* v_s) const {
+  // row c of the tile to dst + c * stride
+  __device__ __forceinline__ void put(float* dst, int stride) const {
 #pragma unroll
     for (int i = 0; i < VPT; ++i) {
       const int idx = threadIdx.x + i * NT;
       if (idx >= BN * VPR) continue;
       const int c = idx / VPR, w = idx % VPR;
-      const float* ke = reinterpret_cast<const float*>(&k[i]);
-      const float* ve = reinterpret_cast<const float*>(&v[i]);
+      const float* e = reinterpret_cast<const float*>(&x[i]);
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        k_s[c * (HD + 1) + w * VEC + e] = ke[e];
-        v_s[c * HD + w * VEC + e] = ve[e];
-      }
+      for (int j = 0; j < VEC; ++j) dst[c * stride + w * VEC + j] = e[j];
     }
   }
 };
 
-template <int HD>
+// One K/V tile in flight: K rows HQK wide, V rows HV wide.
+template <int HQK, int HV>
+struct TileRegs {
+  RowRegs<HQK> k;
+  RowRegs<HV> v;
+
+  __device__ __forceinline__ void fetch(const float* __restrict__ kp,
+                                        const float* __restrict__ vp, int b,
+                                        int kvh, int KV, int T_cap, int t0) {
+    k.fetch(kp, b, kvh, KV, T_cap, t0);
+    v.fetch(vp, b, kvh, KV, T_cap, t0);
+  }
+
+  __device__ __forceinline__ void put(float* k_s, float* v_s) const {
+    k.put(k_s, HQK + 1);
+    v.put(v_s, HV);
+  }
+};
+
+template <int HQK, int HV>
 __global__ void __launch_bounds__(NT)
 extend_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               const int* __restrict__ t_real_ptr,
               int nb, int H, int KV, int T_cap, float scale) {
-  constexpr int DPL = (HD + 31) / 32;   // accumulator columns per lane
+  constexpr int DPL = (HV + 31) / 32;   // accumulator columns per lane
   extern __shared__ float smem[];
-  float* q_s = smem;                     // BM x HD
-  float* k_s = q_s + BM * HD;            // BN x (HD + 1)
-  float* v_s = k_s + BN * (HD + 1);      // BN x HD
-  float* p_s = v_s + BN * HD;            // BM x BN
+  float* q_s = smem;                     // BM x HQK
+  float* k_s = q_s + BM * HQK;           // BN x (HQK + 1)
+  float* v_s = k_s + BN * (HQK + 1);     // BN x HV
+  float* p_s = v_s + BN * HV;            // BM x BN
 
   const int G = H / KV;
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
@@ -174,15 +202,15 @@ extend_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_tiles = (t_real + BN - 1) / BN;
 
-  TileRegs<HD> regs;
+  TileRegs<HQK, HV> regs;
   if (n_tiles > 0) regs.fetch(k, v, b, kvh, KV, T_cap, 0);
 
-  for (int idx = tid; idx < BM * HD; idx += NT) {
-    const int r = idx / HD, d = idx % HD, row = row0 + r;
+  for (int idx = tid; idx < BM * HQK; idx += NT) {
+    const int r = idx / HQK, d = idx % HQK, row = row0 + r;
     float x = 0.f;
     if (row < rows) {
       const int g = row / nb, i = row % nb;
-      x = q[(((size_t)b * nb + i) * H + kvh * G + g) * HD + d] * scale;
+      x = q[(((size_t)b * nb + i) * H + kvh * G + g) * HQK + d] * scale;
     }
     q_s[idx] = x;
   }
@@ -197,7 +225,7 @@ extend_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DPL; ++j) acc[rr][j] = 0.f;
   }
-  const float* q_w = q_s + warp * RPW * HD;
+  const float* q_w = q_s + warp * RPW * HQK;
   float* p_w = p_s + warp * RPW * BN;
 
   for (int tile = 0; tile < n_tiles; ++tile) {
@@ -211,14 +239,14 @@ extend_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float s[RPW][2];
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) s[rr][0] = s[rr][1] = 0.f;
-    const float* k0 = k_s + lane * (HD + 1);
-    const float* k1 = k_s + (lane + 32) * (HD + 1);
+    const float* k0 = k_s + lane * (HQK + 1);
+    const float* k1 = k_s + (lane + 32) * (HQK + 1);
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < HQK; ++d) {
       const float ka = k0[d], kb = k1[d];
 #pragma unroll
       for (int rr = 0; rr < RPW; ++rr) {
-        const float qv = q_w[rr * HD + d];
+        const float qv = q_w[rr * HQK + d];
         s[rr][0] = fmaf(qv, ka, s[rr][0]);
         s[rr][1] = fmaf(qv, kb, s[rr][1]);
       }
@@ -249,7 +277,7 @@ extend_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
         const int d = lane + 32 * j;
-        vv[j] = d < HD ? v_s[c * HD + d] : 0.f;
+        vv[j] = d < HV ? v_s[c * HV + d] : 0.f;
       }
 #pragma unroll
       for (int rr = 0; rr < RPW; ++rr) {
@@ -267,11 +295,11 @@ extend_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (row >= rows) continue;
     const int g = row / nb, i = row % nb;
     const float denom = fmaxf(l[rr], 1e-30f);
-    float* o = out + (((size_t)b * nb + i) * H + kvh * G + g) * HD;
+    float* o = out + (((size_t)b * nb + i) * H + kvh * G + g) * HV;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int d = lane + 32 * j;
-      if (d < HD) o[d] = acc[rr][j] / denom;
+      if (d < HV) o[d] = acc[rr][j] / denom;
     }
   }
 }
@@ -288,15 +316,19 @@ constexpr int STAGES = 2;              // K/V ring slots per group
 static_assert(BM == GW * 16 && MW == 2 * GW, "two groups of 4 warps x 16 rows");
 constexpr float LOG2E = 1.4426950408889634f;
 
-// row stride of a staged bf16 tile: hd plus one 16-byte chunk
-template <int HD>
-__host__ __device__ constexpr int mma_row_stride() { return HD + 8; }
+// the staged q.k width: HQK rounded up to the mma's k-step of 16
+template <int HQK>
+__host__ __device__ constexpr int mma_qk_width() { return (HQK + 15) / 16 * 16; }
+// row stride of a staged bf16 tile: its width plus one 16-byte chunk
+__host__ __device__ constexpr int mma_row_stride(int width) { return width + 8; }
 
-// the block's q rows, then each group's ring of [K, V] tiles; the groups'
-// merge records alias the rings
-template <int HD>
+// the block's q rows (KD + 8 wide), then each group's ring of [K, V] tiles
+// (K rows KD + 8 wide, V rows HV + 8); the groups' merge records alias the
+// rings
+template <int HQK, int HV>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (size_t)mma_row_stride<HD>() * (BM + 2 * STAGES * 2 * BN);
+  constexpr int RSK = mma_row_stride(mma_qk_width<HQK>()), RSV = mma_row_stride(HV);
+  return sizeof(__nv_bfloat16) * (size_t)(BM * RSK + 2 * STAGES * BN * (RSK + RSV));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -361,8 +393,8 @@ __device__ __forceinline__ void split3_bf16(float x, float y, uint32_t (&t)[3]) 
 // the KV tiles kg, kg + 2, kg + 4, ... through its group's own ring (named
 // barrier per group), keeping its own online softmax; at the end group 1's
 // (m, l, acc) merge into group 0's in that order.  Scores are kept in log2
-// units (S * hd^-0.5 * log2 e, exp2).
-template <int HD>
+// units (S * HQK^-0.5 * log2 e, exp2).
+template <int HQK, int HV>
 __global__ void __launch_bounds__(MNT, 1)
 extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -370,13 +402,20 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   __nv_bfloat16* __restrict__ out,
                   const int* __restrict__ t_real_ptr,
                   int nb, int H, int KV, int T_cap, float scale) {
-  constexpr int RS = mma_row_stride<HD>();
-  constexpr int CPR = HD / 8;                   // 16-byte chunks per row
-  constexpr int TILE = BN * RS;                 // elements of one K or V tile
-  constexpr int NO = HD / 8;                    // output N tiles
-  static_assert((BN * CPR) % GNT == 0, "whole K/V copies per thread");
+  constexpr int KD = mma_qk_width<HQK>();       // staged q.k width
+  constexpr int RSK = mma_row_stride(KD);       // q and K row stride
+  constexpr int RSV = mma_row_stride(HV);       // V row stride
+  constexpr int CPK = HQK / 8;                  // 16-byte chunks per q/K row
+  constexpr int CPV = HV / 8;                   // 16-byte chunks per V row
+  constexpr int KTILE = BN * RSK;               // elements of one K tile
+  constexpr int SLOT = BN * (RSK + RSV);        // one ring slot: [K, V]
+  constexpr int NO = HV / 8;                    // output N tiles
+  static_assert(HQK % 8 == 0 && HV % 16 == 0, "16-byte rows, whole P.V k-steps");
+  static_assert(sizeof(float) * (4 + NO * 4) * GNT <=
+                    sizeof(__nv_bfloat16) * 2 * STAGES * SLOT,
+                "the merge record fits in the rings");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BM x RS
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // BM x RSK
 
   const int G = H / KV;
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
@@ -384,37 +423,63 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int t_real = min(*t_real_ptr, T_cap);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int kg = warp / GW, gw = warp % GW, gtid = tid % GNT;
-  __nv_bfloat16* ring = q_s + BM * RS + kg * STAGES * 2 * TILE;      // [slot][K, V]
-  // element (b, t, kvh, d) of k/v sits at (kv_base + t*KV)*HD + d
+  __nv_bfloat16* ring = q_s + BM * RSK + kg * STAGES * SLOT;        // [slot][K, V]
+  // element (b, t, kvh, d) of k sits at (kv_base + t*KV)*HQK + d, of v at
+  // (kv_base + t*KV)*HV + d
   const size_t kv_base = (size_t)b * T_cap * KV + kvh;
   // the walk ends with the tile that holds the block's last visible position
   const int last = min(row0 + BM, rows) - 1;
   const int max_i = last / nb != row0 / nb ? nb - 1 : last % nb;
   const int n_tiles = (t_real - nb + max_i + BN) / BN;
 
-  for (int idx = tid; idx < BM * CPR; idx += MNT) {
-    const int r = idx / CPR, c = idx % CPR, row = row0 + r;
+  for (int idx = tid; idx < BM * CPK; idx += MNT) {
+    const int r = idx / CPK, c = idx % CPK, row = row0 + r;
     const bool ok = row < rows;
     const int g = ok ? row / nb : 0, i = ok ? row % nb : 0;
-    cp_async16(q_s + r * RS + c * 8,
-               q + (((size_t)b * nb + i) * H + kvh * G + g) * HD + c * 8, ok ? 16 : 0);
+    cp_async16(q_s + r * RSK + c * 8,
+               q + (((size_t)b * nb + i) * H + kvh * G + g) * HQK + c * 8, ok ? 16 : 0);
   }
   cp_async_commit();
+  if constexpr (KD > HQK) {
+    // the staged columns past HQK of q and of every K slot, zeroed once (the
+    // copies never write them); the barrier after the q wait publishes them
+    constexpr int PC = (KD - HQK) / 8;          // pad chunks per row
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int idx = tid; idx < (BM + 2 * STAGES * BN) * PC; idx += MNT) {
+      const int r = idx / PC, c = CPK + idx % PC;
+      __nv_bfloat16* row = r < BM ? q_s + r * RSK
+          : q_s + BM * RSK + ((r - BM) / BN) * SLOT + ((r - BM) % BN) * RSK;
+      *reinterpret_cast<uint4*>(row + c * 8) = zero;
+    }
+  }
   // the group's j-th tile (kg + 2j) into slot j % STAGES, one commit group
   // (empty past the walk)
   auto issue = [&](int j) {
     const int tile = kg + 2 * j;
     if (tile < n_tiles) {
-      __nv_bfloat16* kt = ring + (j % STAGES) * 2 * TILE;
+      __nv_bfloat16* kt = ring + (j % STAGES) * SLOT;
       const int t0 = tile * BN;
+      // whole copies per thread where the chunk count divides (the test
+      // folds away), a bound check where it does not (q.k 24: 192 chunks)
 #pragma unroll
-      for (int jj = 0; jj < BN * CPR / GNT; ++jj) {
+      for (int jj = 0; jj < (BN * CPK + GNT - 1) / GNT; ++jj) {
         const int idx = gtid + jj * GNT;
-        const int r = idx / CPR, c = idx % CPR;
-        const bool ok = t0 + r < t_real;
-        const size_t off = (kv_base + (size_t)(ok ? t0 + r : 0) * KV) * HD + c * 8;
-        cp_async16(kt + r * RS + c * 8, k + off, ok ? 16 : 0);
-        cp_async16(kt + TILE + r * RS + c * 8, v + off, ok ? 16 : 0);
+        if ((BN * CPK) % GNT == 0 || idx < BN * CPK) {
+          const int r = idx / CPK, c = idx % CPK;
+          const bool ok = t0 + r < t_real;
+          const size_t row = kv_base + (size_t)(ok ? t0 + r : 0) * KV;
+          cp_async16(kt + r * RSK + c * 8, k + row * HQK + c * 8, ok ? 16 : 0);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < (BN * CPV + GNT - 1) / GNT; ++jj) {
+        const int idx = gtid + jj * GNT;
+        if ((BN * CPV) % GNT == 0 || idx < BN * CPV) {
+          const int r = idx / CPV, c = idx % CPV;
+          const bool ok = t0 + r < t_real;
+          const size_t row = kv_base + (size_t)(ok ? t0 + r : 0) * KV;
+          cp_async16(kt + KTILE + r * RSV + c * 8, v + row * HV + c * 8, ok ? 16 : 0);
+        }
       }
     }
     cp_async_commit();
@@ -440,16 +505,16 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   cp_async_wait<STAGES - 1>();                  // q has landed
   __syncthreads();
-  uint32_t qa[HD / 16][4];                      // Q A fragments, whole walk
+  uint32_t qa[KD / 16][4];                      // Q A fragments, whole walk
   {
     const __nv_bfloat16* a_row =
-        q_s + (gw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
+        q_s + (gw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RSK + (lane >> 4) * 8;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qa[kk], a_row + kk * 16);
+    for (int kk = 0; kk < KD / 16; ++kk) ldmatrix_x4(qa[kk], a_row + kk * 16);
   }
 
   const float scale2 = scale * LOG2E;
-  float o[NO][4];                               // O accumulators: 16 rows x HD
+  float o[NO][4];                               // O accumulators: 16 rows x HV
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int dn = 0; dn < NO; ++dn)
@@ -462,8 +527,8 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
     group_sync(kg);
     const int t0 = (kg + 2 * j) * BN;
     if (t0 <= hi_pos) {
-      const __nv_bfloat16* kt = ring + (j % STAGES) * 2 * TILE;
-      const __nv_bfloat16* vt = kt + TILE;
+      const __nv_bfloat16* kt = ring + (j % STAGES) * SLOT;
+      const __nv_bfloat16* vt = kt + KTILE;
 
       // S = Q K^T: 8 N tiles of 8 positions
       float s[BN / 8][4];
@@ -472,13 +537,13 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
       const __nv_bfloat16* b_row =
-          kt + ((lane & 7) + (lane >> 4) * 8) * RS + ((lane >> 3) & 1) * 8;
+          kt + ((lane & 7) + (lane >> 4) * 8) * RSK + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
+      for (int kk = 0; kk < KD / 16; ++kk)
 #pragma unroll
         for (int np = 0; np < BN / 16; ++np) {
           uint32_t bf[4];
-          ldmatrix_x4(bf, b_row + np * 16 * RS + kk * 16);
+          ldmatrix_x4(bf, b_row + np * 16 * RSK + kk * 16);
           mma_bf16(s[2 * np], qa[kk], bf[0], bf[1]);
           mma_bf16(s[2 * np + 1], qa[kk], bf[2], bf[3]);
         }
@@ -531,7 +596,7 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
       // O += P V with P as three bf16 terms: k-steps of 16 positions, two
       // output N tiles per ldmatrix.trans
       const __nv_bfloat16* v_row =
-          vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
+          vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * RSV + (lane >> 4) * 8;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
         uint32_t pa[3][4];
@@ -544,9 +609,9 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
           for (int i = 0; i < 3; ++i) pa[i][f] = t[i];
         }
 #pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
+        for (int dp = 0; dp < HV / 16; ++dp) {
           uint32_t bf[4];
-          ldmatrix_x4_trans(bf, v_row + kk * 16 * RS + dp * 16);
+          ldmatrix_x4_trans(bf, v_row + kk * 16 * RSV + dp * 16);
 #pragma unroll
           for (int i = 0; i < 3; ++i) {
             mma_bf16(o[2 * dp], pa[i], bf[0], bf[1]);
@@ -567,7 +632,7 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
   __syncthreads();                              // both rings are drained
-  float* rec = reinterpret_cast<float*>(q_s + BM * RS);   // [4 + NO*4][GNT]
+  float* rec = reinterpret_cast<float*>(q_s + BM * RSK);  // [4 + NO*4][GNT]
   if (kg == 1) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -590,7 +655,7 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (!live[h]) continue;
     const int row = wr0 + (lane >> 2) + 8 * h;
     const int g = row / nb, i = row % nb;
-    __nv_bfloat16* dst = out + (((size_t)b * nb + i) * H + kvh * G + g) * HD + 2 * (lane & 3);
+    __nv_bfloat16* dst = out + (((size_t)b * nb + i) * H + kvh * G + g) * HV + 2 * (lane & 3);
 #pragma unroll
     for (int dn = 0; dn < NO; ++dn) {
       const float x0 = o[dn][2 * h] * a0 + rec[(4 + dn * 4 + 2 * h) * GNT + gtid] * a1;
@@ -602,20 +667,21 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int HQK, int HV>
 int launch(const void* q, const void* k, const void* v, void* out,
            const int* t_real, int B, int nb, int H, int KV, int T_cap,
            float scale, cudaStream_t stream) {
   constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;   // tensor cores
-  constexpr size_t smem = MMA ? mma_smem_bytes<HD>() : smem_bytes<HD>();
+  constexpr size_t smem = MMA ? mma_smem_bytes<HQK, HV>() : smem_bytes<HQK, HV>();
+  static_assert(smem <= 232448, "within the H100's 227 KB per block");
   static bool configured = false;
   if (!configured) {
     cudaError_t e;
     if constexpr (MMA)
-      e = cudaFuncSetAttribute(extend_mma_kernel<HD>,
+      e = cudaFuncSetAttribute(extend_mma_kernel<HQK, HV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     else
-      e = cudaFuncSetAttribute(extend_kernel<HD>,
+      e = cudaFuncSetAttribute(extend_kernel<HQK, HV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
@@ -623,12 +689,12 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const int G = H / KV;
   dim3 grid(B * KV, (G * nb + BM - 1) / BM);
   if constexpr (MMA) {
-    extend_mma_kernel<HD><<<grid, MNT, smem, stream>>>(
+    extend_mma_kernel<HQK, HV><<<grid, MNT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), t_real, nb, H, KV,
         T_cap, scale);
   } else {
-    extend_kernel<HD><<<grid, NT, smem, stream>>>(
+    extend_kernel<HQK, HV><<<grid, NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), t_real, nb, H, KV,
         T_cap, scale);
@@ -636,17 +702,18 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// the built (q.k width, v width) pairs; kernel.py::PAIRS lists the same
 template <typename T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                void* out, const int* t_real, int B, int nb, int H, int KV,
-                int T_cap, float scale, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, out, t_real, B, nb, H, KV, T_cap, scale, s);
-    case 32: return launch<T, 32>(q, k, v, out, t_real, B, nb, H, KV, T_cap, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, t_real, B, nb, H, KV, T_cap, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, t_real, B, nb, H, KV, T_cap, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int dispatch_widths(int hqk, int hv, const void* q, const void* k, const void* v,
+                    void* out, const int* t_real, int B, int nb, int H, int KV,
+                    int T_cap, float scale, cudaStream_t s) {
+#define PAIR(A, C)                                                            \
+  if (hqk == A && hv == C)                                                     \
+    return launch<T, A, C>(q, k, v, out, t_real, B, nb, H, KV, T_cap, scale, s);
+  PAIR(16, 16) PAIR(32, 32) PAIR(64, 64) PAIR(128, 128)   // GQA: HQK = HV
+  PAIR(24, 16) PAIR(192, 128)                             // MLA: reduced, full
+#undef PAIR
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -655,14 +722,16 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 extern "C" int repro_extend_attention(const void* q, const void* k,
                                       const void* v, void* out,
                                       const int* t_real, int B, int nb, int H,
-                                      int KV, int T_cap, int hd, float scale,
-                                      int dtype, void* stream) {
+                                      int KV, int T_cap, int hqk, int hv,
+                                      float scale, int dtype, void* stream) {
   if (B <= 0 || nb <= 0 || KV <= 0 || H % KV != 0 || T_cap <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_hd<float>(hd, q, k, v, out, t_real, B, nb, H, KV, T_cap, scale, s);
+    return dispatch_widths<float>(hqk, hv, q, k, v, out, t_real, B, nb, H, KV, T_cap,
+                                  scale, s);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, t_real, B, nb, H, KV, T_cap, scale, s);
+    return dispatch_widths<__nv_bfloat16>(hqk, hv, q, k, v, out, t_real, B, nb, H, KV,
+                                          T_cap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,24 +12,31 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "extend_attention.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the kernel; ``KERNEL.launches`` counts launches on the card
 KERNEL = CudaKernel(SOURCE, "repro_extend_attention",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      ctypes.c_float, _I, _P])
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+#: the built (q·k width, v width) pairs (``dispatch_widths`` in the source):
+#: equal widths for the GQA layout, MLA's packed [nope ‖ rope] q·k width
+#: against its v width (reduced 16 + 8 / 16, full 128 + 64 / 128)
+PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (24, 16), (192, 128))
 
 
 def extend_attention_cuda(q, k, v, t_real):
-    """Launch the kernel: q (B, nb, H, hd); k/v (B, T, KV, hd); ``t_real`` a
-    0-d int32 CUDA tensor.  Returns (B, nb, H, hd) in q's dtype."""
-    b, nb, h, hd = q.shape
-    if k.ndim != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
-        raise ValueError(f"k/v must be (B, T, KV, {hd}) like q's batch; "
-                         f"got k {tuple(k.shape)}, v {tuple(v.shape)}")
-    t, kv = k.shape[1], k.shape[2]
+    """Launch the kernel: q (B, nb, H, HQK); k (B, T, KV, HQK); v (B, T, KV,
+    HV); ``t_real`` a 0-d int32 CUDA tensor.  Returns (B, nb, H, HV) in q's
+    dtype, with scores scaled by HQK^-0.5."""
+    b, nb, h, hqk = q.shape
+    if (k.ndim != 4 or v.ndim != 4 or k.shape[0] != b or k.shape[3] != hqk
+            or v.shape[:3] != k.shape[:3]):
+        raise ValueError(f"k must be (B, T, KV, {hqk}) like q's batch and v "
+                         f"(B, T, KV, HV) like k; got k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    t, kv, hv = k.shape[1], k.shape[2], v.shape[3]
     if h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not built; have {HEAD_DIMS}")
+    if (hqk, hv) not in PAIRS:
+        raise ValueError(f"head dims (q·k {hqk}, v {hv}) not built; have "
+                         f"(q·k, v) pairs {PAIRS}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one of {list(DTYPES)}; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -43,9 +50,9 @@ def extend_attention_cuda(q, k, v, t_real):
             and t_real.numel() == 1 and t_real.device == q.device):
         raise TypeError("t_real must be a one-element int32 tensor on "
                         f"{q.device}")
-    out = torch.empty_like(q)
+    out = q.new_empty((b, nb, h, hv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           t_real.data_ptr(), b, nb, h, kv, t, hd, hd ** -0.5,
+           t_real.data_ptr(), b, nb, h, kv, t, hqk, hv, hqk ** -0.5,
            DTYPES[q.dtype], stream)
     return out

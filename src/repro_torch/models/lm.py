@@ -1,18 +1,21 @@
-"""Language-model assembly for attention-only dense decoder stacks.
+"""Language-model assembly for decoder stacks of attention or MLA layers
+with dense or MoE feed-forward layers.
 
 A config compiles into **segments** ``(period, n_periods)`` exactly as in
 ``repro.models.lm``; parameters and serving caches keep the JAX package's
 layer-stacked layout (parameter leaves ``(L, ...)``, cache leaves
-``(L, B, T, KV, hd)`` with the sequence at axis 2), so the two packages
-compare leaf by leaf.  Where JAX scans over stacked layers the port loops
+``(L, B, T, KV, hd)``, MLA's latent ``(L, B, T, kv_lora)`` and
+``(L, B, T, rope)``, the sequence at axis 2), so the two packages compare
+leaf by leaf.  Where JAX scans over stacked layers the port loops
 over them in Python, indexing views of the stacked tensors.
 
 Serving entry points update caches **in place**: ``prefill_extend`` and
-``decode_step`` write the new K/V rows into the cache tensors they are
-given and return the same tree (JAX returns new arrays).
+``decode_step`` write the new K/V (or latent) rows into the cache tensors
+they are given and return the same tree (JAX returns new arrays).
 
-Only dense attention layers with a dense SwiGLU MLP are ported; MLA, SSD,
-MoE and cross-attention layers wait for ROADMAP.md §1 item 8.
+Ported mixers: GQA attention and MLA; feed-forward layers: dense SwiGLU and
+the routed MoE (``deepseek-v2-236b``).  SSD, cross-attention, other
+activations and ``expand_kv`` wait for ROADMAP.md §1 item 8.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 
 from . import attention as attn
+from . import mla as mla_mod
 from . import moe as moe_mod
 from .common import (CACHE_STATE_KEYS, cache_leaf_key, rms_norm,
                      tree_map_with_path)
@@ -123,12 +127,45 @@ def _dense_mlp_specs(cfg: ArchConfig, d_ff: int) -> dict:
     return s
 
 
+def _mla_specs(cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    return {
+        "w_dq": ParamSpec((d, m.q_lora_rank)),
+        "q_norm": ParamSpec((m.q_lora_rank,), "ones"),
+        "w_uq": ParamSpec((m.q_lora_rank, H, m.qk_nope_head_dim + m.qk_rope_head_dim)),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), "ones"),
+        "w_uk": ParamSpec((m.kv_lora_rank, H, m.qk_nope_head_dim)),
+        "w_uv": ParamSpec((m.kv_lora_rank, H, m.v_head_dim)),
+        "w_o": ParamSpec((H, m.v_head_dim, d), scale=cfg.n_layers ** -0.5),
+    }
+
+
+def _moe_specs(cfg: ArchConfig) -> dict:
+    m = cfg.moe
+    d = cfg.d_model
+    s = {
+        "router": ParamSpec((d, m.n_experts)),
+        "experts": {
+            "w_gate": ParamSpec((m.n_experts, d, m.d_ff_expert)),
+            "w_up": ParamSpec((m.n_experts, d, m.d_ff_expert)),
+            "w_down": ParamSpec((m.n_experts, m.d_ff_expert, d),
+                                scale=cfg.n_layers ** -0.5),
+        },
+    }
+    if m.n_shared:
+        s["shared"] = _dense_mlp_specs(cfg, (m.d_ff_shared or m.d_ff_expert) * m.n_shared)
+    return s
+
+
 def _layer_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     d = cfg.d_model
-    out: dict = {"ln1": ParamSpec((d,), "ones"), "mixer": _attn_specs(cfg)}
+    out: dict = {"ln1": ParamSpec((d,), "ones"),
+                 "mixer": _mla_specs(cfg) if spec.mixer == "mla" else _attn_specs(cfg)}
     if spec.mlp != "none":
         out["ln2"] = ParamSpec((d,), "ones")
-        out["mlp"] = _dense_mlp_specs(cfg, cfg.d_ff)
+        out["mlp"] = _moe_specs(cfg) if spec.mlp == "moe" else _dense_mlp_specs(cfg, cfg.d_ff)
     return out
 
 
@@ -139,12 +176,8 @@ def _stack_specs(tree, n: int):
 
 def _unsupported(cfg: ArchConfig) -> list[str]:
     why = []
-    if cfg.mla is not None:
-        why.append("MLA attention")
     if cfg.ssm is not None:
         why.append("SSD layers")
-    if cfg.moe is not None:
-        why.append("MoE layers")
     if cfg.encoder_layers or cfg.cross_attn_every or cfg.vision_context:
         why.append("cross-attention")
     if cfg.d_ff and cfg.activation != "swiglu":
@@ -155,7 +188,7 @@ def _unsupported(cfg: ArchConfig) -> list[str]:
 
 
 def param_specs(cfg: ArchConfig) -> dict:
-    """Spec tree of an attention-only dense stack (JAX key names)."""
+    """Spec tree of the config's stack (JAX key names)."""
     why = _unsupported(cfg)
     if why:
         raise NotImplementedError(
@@ -205,8 +238,28 @@ def _attn_params(p: dict) -> attn.AttnParams:
                            p.get("q_norm"), p.get("k_norm"))
 
 
+def _mla_params(p: dict) -> mla_mod.MLAParams:
+    return mla_mod.MLAParams(p["w_dq"], p["q_norm"], p["w_uq"], p["w_dkv"],
+                             p["kv_norm"], p["w_uk"], p["w_uv"], p["w_o"])
+
+
+def _moe_params(p: dict) -> moe_mod.MoEParams:
+    shared = None
+    if "shared" in p:
+        sh = p["shared"]
+        shared = (sh["w_gate"], sh["w_up"], sh["w_down"])
+    e = p["experts"]
+    return moe_mod.MoEParams(
+        p["router"], moe_mod.ExpertParams(e["w_gate"], e["w_up"], e["w_down"]), shared)
+
+
+#: the cache leaves of each mixer, in the order its entry points return them
+CACHE_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope")}
+
+
 class LM:
-    """Decoder LM for one attention-only dense ArchConfig.
+    """Decoder LM for one ArchConfig of attention or MLA layers with dense
+    or MoE feed-forward layers.
 
     ``device`` is where :meth:`init` allocates by default; every forward
     entry point runs on the device of the tokens it is given.
@@ -244,15 +297,21 @@ class LM:
         return F.embedding(tokens.long(), params["embed"]).to(self.compute_dtype)
 
     def _mlp(self, spec: LayerSpec, p, x):
+        cfg = self.cfg
         if spec.mlp == "none":
             return x
-        hn = rms_norm(x.to(self.compute_dtype), p["ln2"], self.cfg.norm_eps)
-        y = moe_mod.dense_ffn(p["mlp"], hn, self.cfg.activation)
+        hn = rms_norm(x.to(self.compute_dtype), p["ln2"], cfg.norm_eps)
+        if spec.mlp == "moe":
+            y, _ = moe_mod.moe_ffn(_moe_params(p["mlp"]), cfg.moe, hn,
+                                   activation=cfg.activation, groups=cfg.moe_groups)
+        else:
+            y = moe_mod.dense_ffn(p["mlp"], hn, cfg.activation)
         return x + y.to(x.dtype)
 
     def _layers(self, params, caches=None):
         """Yield (segment index, period slot j, layer i, spec, layer params,
-        layer cache views or None) in execution order."""
+        layer cache views or None) in execution order; a layer's cache views
+        are its mixer's leaves (:data:`CACHE_LEAVES`) in order."""
         for s, ((period, n), seg_params) in enumerate(
                 zip(self.segments, params["segments"])):
             for i in range(n):
@@ -260,7 +319,7 @@ class LM:
                     cache = None
                     if caches is not None:
                         c = caches[s][f"p{j}"]
-                        cache = (c["k"][i], c["v"][i])
+                        cache = tuple(c[name][i] for name in CACHE_LEAVES[spec.mixer])
                     yield s, j, i, spec, _layer_params(seg_params[f"p{j}"], i), cache
 
     def logits(self, params, hidden):
@@ -283,15 +342,20 @@ class LM:
         kv: dict = {}
         for seg, j, _, spec, p, _ in self._layers(params):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
-            mixed, (k, v) = attn.self_attention(
-                _attn_params(p["mixer"]), h, positions, causal=True,
-                theta=cfg.rope_theta, block=cfg.attn_block)
+            if spec.mixer == "mla":
+                mixed, leaves = mla_mod.mla_self_attention(
+                    _mla_params(p["mixer"]), cfg.mla, h, positions,
+                    theta=cfg.rope_theta, block=cfg.attn_block)
+            else:
+                mixed, leaves = attn.self_attention(
+                    _attn_params(p["mixer"]), h, positions, causal=True,
+                    theta=cfg.rope_theta, block=cfg.attn_block)
             x = self._mlp(spec, p, x + mixed.to(x.dtype))
-            kv.setdefault((seg, j), []).append((k, v))
+            kv.setdefault((seg, j), []).append(leaves)
         caches = [
-            {f"p{j}": {"k": torch.stack([k for k, _ in kv[(seg, j)]]),
-                       "v": torch.stack([v for _, v in kv[(seg, j)]])}
-             for j in range(len(period))}
+            {f"p{j}": {name: torch.stack([lv[a] for lv in kv[(seg, j)]])
+                       for a, name in enumerate(CACHE_LEAVES[spec.mixer])}
+             for j, spec in enumerate(period)}
             for seg, (period, _) in enumerate(self.segments)]
         return self._final_logits(params, x), caches
 
@@ -310,11 +374,16 @@ class LM:
         start = torch.as_tensor(start, dtype=torch.int32, device=tokens.device)
         x = self._embed(params, tokens)
         positions = (start + torch.arange(nb, device=tokens.device)).expand(b, nb)
-        for _, _, _, spec, p, (ck, cv) in self._layers(params, caches):
+        for _, _, _, spec, p, (c0, c1) in self._layers(params, caches):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
-            mixed, _ = attn.extend_attention_cached(
-                _attn_params(p["mixer"]), h, ck, cv, positions, start,
-                theta=cfg.rope_theta)
+            if spec.mixer == "mla":
+                mixed, _ = mla_mod.mla_extend(
+                    _mla_params(p["mixer"]), cfg.mla, h, c0, c1, positions, start,
+                    theta=cfg.rope_theta)
+            else:
+                mixed, _ = attn.extend_attention_cached(
+                    _attn_params(p["mixer"]), h, c0, c1, positions, start,
+                    theta=cfg.rope_theta)
             x = self._mlp(spec, p, x + mixed.to(x.dtype))
         return self._final_logits(params, x), caches
 
@@ -359,13 +428,19 @@ class LM:
         """One token for every sequence, in place.  tokens (B,1); pos (B,)
         int32 on the tokens' device.  Attention runs the ragged
         flash-decode kernel, whose output is bit-invariant to the cache's
-        padded capacity."""
+        padded capacity; MLA runs its dense absorbed decode (``repro``'s
+        route), which reduces over the whole padded capacity."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        for _, _, _, spec, p, (ck, cv) in self._layers(params, caches):
+        for _, _, _, spec, p, (c0, c1) in self._layers(params, caches):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
-            mixed, _ = attn.decode_attention(
-                _attn_params(p["mixer"]), h, ck, cv, pos, theta=cfg.rope_theta)
+            if spec.mixer == "mla":
+                mixed, _ = mla_mod.mla_decode(
+                    _mla_params(p["mixer"]), cfg.mla, h, c0, c1, pos,
+                    theta=cfg.rope_theta)
+            else:
+                mixed, _ = attn.decode_attention(
+                    _attn_params(p["mixer"]), h, c0, c1, pos, theta=cfg.rope_theta)
             x = self._mlp(spec, p, x + mixed.to(x.dtype))
         hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self.logits(params, hidden)[:, 0], caches

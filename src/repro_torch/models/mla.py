@@ -1,0 +1,129 @@
+"""Multi-head Latent Attention (DeepSeek-V2, arXiv:2405.04434).
+
+The counterpart of ``repro.models.mla``.  Q goes through a LoRA
+bottleneck; K/V are reconstructed from a shared ``kv_lora_rank`` latent
+plus a decoupled RoPE key, so the serving cache is the latent stream
+``(c_kv, k_rope)`` alone.
+
+* prefill (:func:`mla_self_attention`): K/V expanded from the latent, the
+  blocked softmax over the packed [nope ‖ rope] width;
+* extend (:func:`mla_extend`): the chunk's latents are written **in place**
+  at ``start``, K/V are expanded from the whole padded latent, and the
+  queries attend through the extend kernel in its MLA form
+  (``kernels/extend_attention/ops.py::extend_attention_mla``);
+* decode (:func:`mla_decode`): the **absorbed** formulation, dense plain
+  PyTorch as in ``repro`` (no kernel): query projections fold through
+  ``w_uk`` / ``w_uv`` so attention runs in latent space; the latent is
+  written in place at each row's ``pos``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import MLAConfig
+from repro_torch.kernels.extend_attention import ops as extend_ops
+
+from .attention import NEG_INF, blocked_attention, seq_update
+from .common import apply_rope, dense, proj_heads, proj_out, rms_norm, rope_angles
+
+
+class MLAParams(NamedTuple):
+    w_dq: torch.Tensor     # (d, q_lora)
+    q_norm: torch.Tensor   # (q_lora,)
+    w_uq: torch.Tensor     # (q_lora, H, nope+rope)
+    w_dkv: torch.Tensor    # (d, kv_lora + rope)
+    kv_norm: torch.Tensor  # (kv_lora,)
+    w_uk: torch.Tensor     # (kv_lora, H, nope)
+    w_uv: torch.Tensor     # (kv_lora, H, v_dim)
+    w_o: torch.Tensor      # (H, v_dim, d)
+
+
+def _latent(p: MLAParams, m: MLAConfig, x, positions, theta):
+    """Compressed KV stream: returns (c_kv normed, k_rope roped)."""
+    dkv = dense(x, p.w_dkv)                               # (B,T,kv_lora+rope)
+    c_kv = rms_norm(dkv[..., : m.kv_lora_rank], p.kv_norm)
+    k_rope = dkv[..., m.kv_lora_rank:][..., None, :]      # (B,T,1,rope)
+    kc, ks = rope_angles(positions, m.qk_rope_head_dim, theta)
+    k_rope = apply_rope(k_rope, kc, ks)[..., 0, :]        # shared across heads
+    return c_kv, k_rope
+
+
+def _queries(p: MLAParams, m: MLAConfig, x, positions, theta):
+    q = proj_heads(rms_norm(dense(x, p.w_dq), p.q_norm), p.w_uq)  # (B,S,H,nope+rope)
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = q[..., m.qk_nope_head_dim:]
+    qc, qs = rope_angles(positions, m.qk_rope_head_dim, theta)
+    return q_nope, apply_rope(q_rope, qc, qs)
+
+
+def mla_self_attention(p: MLAParams, m: MLAConfig, x, positions, *, theta: float,
+                       block: int = 512):
+    """Prefill: expand K/V from the latent, blocked softmax.
+
+    Returns (out, (c_kv, k_rope)) — the cacheable latent stream.
+    """
+    q_nope, q_rope = _queries(p, m, x, positions, theta)
+    c_kv, k_rope = _latent(p, m, x, positions, theta)
+    k_nope = proj_heads(c_kv, p.w_uk)                     # (B,T,H,nope)
+    v = proj_heads(c_kv, p.w_uv)                          # (B,T,H,v)
+    # the packed width's scale (nope+rope)^-0.5 is MLA's
+    q, k = extend_ops.pack_mla(q_nope, q_rope, k_nope, k_rope)
+    out = blocked_attention(q, k, v, positions, positions, causal=True, block=block)
+    return proj_out(out, p.w_o), (c_kv, k_rope)
+
+
+def mla_extend(p: MLAParams, m: MLAConfig, h, cache_ckv, cache_krope,
+               positions, start, *, theta: float):
+    """Extend-path MLA over a capacity-padded latent cache, in place.
+
+    h (B, nb, d) is the chunk's normed hidden state; cache_ckv (B, cap,
+    kv_lora) / cache_krope (B, cap, rope) hold the valid latent stream for
+    [0, start).  The chunk's latents are written at [start, start+nb), K/V
+    are expanded from the *whole padded* latent (as ``repro`` does), and
+    the extend kernel masks everything past ``t_real = start + nb``.
+    ``start`` is a 0-d integer tensor on the cache's device.
+
+    Returns (projected out, (cache_ckv, cache_krope)).
+    """
+    nb = h.shape[1]
+    q_nope, q_rope = _queries(p, m, h, positions, theta)
+    c_new, kr_new = _latent(p, m, h, positions, theta)
+    seq_update(cache_ckv, c_new, start)
+    seq_update(cache_krope, kr_new, start)
+    k_nope = proj_heads(cache_ckv, p.w_uk)                # (B, cap, H, nope)
+    v = proj_heads(cache_ckv, p.w_uv)                     # (B, cap, H, v)
+    out = extend_ops.extend_attention_mla(q_nope, q_rope, k_nope, cache_krope, v,
+                                          t_real=start + nb)
+    return proj_out(out, p.w_o), (cache_ckv, cache_krope)
+
+
+def mla_decode(p: MLAParams, m: MLAConfig, x, cache_ckv, cache_krope, pos, *,
+               theta: float):
+    """Absorbed-matrix decode in latent space, in place.
+
+    x (B,1,d); cache_ckv (B,T,kv_lora); cache_krope (B,T,rope); pos (B,)
+    int32 on the caches' device.  Writes row b's latent at pos[b], then
+    scores = q_nopeᵀ·W_uk·c + q_ropeᵀ·k_rope over positions ≤ pos[b] and
+    out = (probs·c)·W_uv, in fp32.
+    """
+    b = x.shape[0]
+    t = cache_ckv.shape[1]
+    q_nope, q_rope = _queries(p, m, x, pos[:, None], theta)   # (B,1,H,·)
+    c_new, kr_new = _latent(p, m, x, pos[:, None], theta)
+    rows = torch.arange(b, device=cache_ckv.device)
+    cache_ckv[rows, pos.long()] = c_new[:, 0].to(cache_ckv.dtype)
+    cache_krope[rows, pos.long()] = kr_new[:, 0].to(cache_krope.dtype)
+    # absorb: q' = q_nope @ W_uk  → latent-space query (B,H,kv_lora)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], p.w_uk)
+    sc = torch.einsum("bhl,btl->bht", q_lat.float(), cache_ckv.float())
+    sc = sc + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(), cache_krope.float())
+    sc = sc * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    valid = torch.arange(t, device=sc.device)[None] <= pos[:, None]
+    sc = torch.where(valid[:, None, :], sc, NEG_INF)
+    prob = torch.softmax(sc, dim=-1)
+    o_lat = torch.einsum("bht,btl->bhl", prob, cache_ckv.float())
+    out = torch.einsum("bhl,lhv->bhv", o_lat, p.w_uv.float())
+    out = out[:, None].to(x.dtype)                        # (B,1,H,v)
+    return proj_out(out, p.w_o), (cache_ckv, cache_krope)

@@ -1,16 +1,143 @@
-"""Feed-forward layers.  Only the dense MLP is ported so far; the routed
-mixture-of-experts layer waits for ROADMAP §1 item 8."""
+"""Feed-forward layers: the dense MLP and the routed mixture of experts.
+
+The counterpart of ``repro.models.moe``.  ``moe_ffn`` is ``repro``'s
+top-k routing with a capacity-bucketed dispatch: assignments are sorted by
+expert and scattered into a fixed ``(E, capacity, d)`` buffer, both expert
+GEMMs run block-dense (``torch.bmm``; no kernel in ``repro`` either), and
+overflow assignments are dropped (GShard-style capacity factor).
+
+Every step is deterministic on the card, so a replayed request gives
+bitwise the same tokens:
+
+* top-k breaks ties toward the lower expert index, as ``jax.lax.top_k``
+  does (a stable descending sort; ``torch.topk`` promises no order);
+* the sort by expert is stable, as ``jnp.argsort``, so the drop order is
+  ``repro``'s;
+* the dispatch writes each kept (expert, slot) once, dropped assignments
+  to one spare row that is never read;
+* the combine gathers each token's k weighted outputs to ``(n, k, d)`` and
+  sums them in ascending expert order, the order of ``repro``'s scatter-add
+  on the CPU, with no atomic ``index_add_``.
+"""
 from __future__ import annotations
 
+import math
+from typing import NamedTuple, Optional
+
+import torch
 import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
 
 from .common import dense
 
 
-def dense_ffn(params: dict, x, activation: str):
-    """Plain MLP; ``params`` has w_up/w_down and (for swiglu) w_gate."""
+class ExpertParams(NamedTuple):
+    w_gate: torch.Tensor   # (E, d, ff)
+    w_up: torch.Tensor     # (E, d, ff)
+    w_down: torch.Tensor   # (E, ff, d)
+
+
+class MoEParams(NamedTuple):
+    router: torch.Tensor   # (d, E)
+    experts: ExpertParams
+    shared: Optional[tuple] = None  # (w_gate, w_up, w_down) of the shared experts
+
+
+def _swiglu_only(activation: str) -> None:
     if activation != "swiglu":
         raise NotImplementedError(
             f"activation {activation!r}: only swiglu is ported (ROADMAP §1 item 8)")
+
+
+def top_k_lower_index(x, k: int):
+    """(values, indices) of the k largest entries along the last axis, in
+    descending order, ties to the lower index (``jax.lax.top_k``'s order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert_ffn(tokens, w_gate, w_up, w_down, activation: str):
+    """tokens (E, C, d) → (E, C, d) via per-expert matmuls."""
+    _swiglu_only(activation)
+    h = F.silu(torch.bmm(tokens, w_gate)) * torch.bmm(tokens, w_up)
+    return torch.bmm(h, w_down)
+
+
+def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
+            groups: int = 1):
+    """x (B, S, d) → ((B, S, d), router aux loss).
+
+    ``groups > 1`` is ``repro``'s expert-parallel dispatch, which belongs
+    to sharding and is not ported.
+    """
+    if groups > 1:
+        raise NotImplementedError(
+            f"moe_groups={groups}: the expert-parallel dispatch is sharding, "
+            "not ported yet (ROADMAP.md §1 item 7)")
+    b, s, d = x.shape
+    n = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(n, d)
+
+    logits = dense(xt.float(), p.router.float())                          # (n, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = top_k_lower_index(probs, k)                    # (n, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux loss (Switch): E · Σ_e f_e · p_e
+    me = probs.mean(0)
+    flat_expert = expert_ids.reshape(-1)                                   # (n·k,)
+    # whole counts: exact in any order (bincount would wait for the card)
+    ce = probs.new_zeros(e).scatter_add_(0, flat_expert, torch.ones_like(
+        flat_expert, dtype=probs.dtype)) / (n * k)
+    aux = e * torch.sum(me * ce)
+
+    capacity = max(int(math.ceil(n * k * cfg.capacity_factor / e)), 4)
+
+    flat_gate = gate_vals.reshape(-1)
+    # position of each assignment within its expert's bucket
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    slot = (torch.arange(n * k, device=x.device)
+            - torch.searchsorted(sorted_expert, sorted_expert))
+    keep = slot < capacity
+    token_idx = order // k
+
+    # dispatch: row e·capacity + slot of the flat buffer; dropped
+    # assignments go to the spare last row
+    dest = torch.where(keep, sorted_expert * capacity + slot, e * capacity)
+    buf = x.new_zeros((e * capacity + 1, d))
+    buf[dest] = xt[token_idx]
+    out_buf = _expert_ffn(buf[:-1].view(e, capacity, d), p.experts.w_gate,
+                          p.experts.w_up, p.experts.w_down, activation)
+
+    gathered = out_buf.reshape(e * capacity, d)[torch.where(keep, dest, 0)]
+    gathered = torch.where(keep[:, None], gathered, 0.0)
+    weighted = (gathered * flat_gate[order][:, None]).to(x.dtype)
+    # combine without atomics: assignment (token t, its j-th lowest expert)
+    # lands at row t·k + j, then the k rows sum in that order
+    rank = torch.argsort(torch.argsort(expert_ids, dim=-1), dim=-1).reshape(-1)
+    contrib = x.new_empty((n * k, d))
+    contrib[token_idx * k + rank[order]] = weighted
+    contrib = contrib.view(n, k, d)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+
+    if p.shared is not None:
+        out = out + _shared_ffn(p.shared, xt, activation)
+    return out.reshape(b, s, d), aux
+
+
+def _shared_ffn(shared, xt, activation: str):
+    _swiglu_only(activation)
+    w_gate, w_up, w_down = shared
+    return (F.silu(xt @ w_gate) * (xt @ w_up)) @ w_down
+
+
+def dense_ffn(params: dict, x, activation: str):
+    """Plain MLP; ``params`` has w_up/w_down and (for swiglu) w_gate."""
+    _swiglu_only(activation)
     h = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
     return dense(h, params["w_down"])

@@ -253,7 +253,9 @@ class SessionManager:
     """
 
     #: the decode route: ``LM.decode_step`` through the decode kernel, which
-    #: stops every row at its own ``pos`` (the TPU's route in ``repro``)
+    #: stops every row at its own ``pos`` (the TPU's route in ``repro``);
+    #: "dense" for a stack of MLA layers, whose absorbed decode reads the
+    #: pack's whole padded capacity
     decode_mode = "kernel"
 
     def __init__(self, model, params, *,
@@ -316,9 +318,11 @@ class SessionManager:
         self.merge_decode_packs = (True if merge_decode_packs is None
                                    else merge_decode_packs)
         # attention-bearing layers, for the decode-FLOP count
-        self._n_attn_layers = sum(
-            n * sum(1 for spec in period if spec.mixer in ("attn", "mla"))
-            for period, n in model.segments)
+        self._n_attn_layers, self._n_mla_layers = (sum(
+            n * sum(1 for spec in period if spec.mixer == mixer)
+            for period, n in model.segments) for mixer in ("attn", "mla"))
+        if self._n_mla_layers and not self._n_attn_layers:
+            self.decode_mode = "dense"
         # per-request counters live on each Session (folded into
         # _closed_stats on close); this object carries the batched decode
         # wall time.  aggregate_stats() is the combined view.
@@ -721,13 +725,20 @@ class SessionManager:
         """Attention FLOPs one decode call runs: per attended KV position a
         query head does q·k and p·v (4·hd FLOPs), and the decode kernel
         reads each row's positions in whole splits of ``kernel.SPLIT``, up
-        to the pack's capacity."""
+        to the pack's capacity.  An MLA layer's absorbed decode scores the
+        latent and the rope key and sums the latent (2·(2·kv_lora + rope)
+        FLOPs a head) at every position of the padded capacity."""
         from repro_torch.kernels.decode_attention.kernel import SPLIT
 
         cfg = self.model.cfg
         per_tok = 4.0 * cfg.n_heads * cfg.head_dim * self._n_attn_layers
         tokens = sum(min(-(-t // SPLIT) * SPLIT, cap) for t in live)
-        return per_tok * tokens
+        flops = per_tok * tokens
+        if self._n_mla_layers:
+            m = cfg.mla
+            flops += (2.0 * cfg.n_heads * (2 * m.kv_lora_rank + m.qk_rope_head_dim)
+                      * self._n_mla_layers * cap * len(live))
+        return flops
 
     # -- reporting ---------------------------------------------------------
     def aggregate_stats(self) -> ServeStats:

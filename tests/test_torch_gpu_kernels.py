@@ -129,6 +129,70 @@ def test_extend_kernel_bit_invariant_to_capacity(hopper, dtype, small, big, nb, 
     assert torch.equal(small_out, big_out)
 
 
+#: MLA's (nope, rope, v) widths: q·k 192 / v 128 at full width, 24 / 16 reduced
+MLA_WIDTHS = pytest.mark.parametrize("nope,rope,hv", [(128, 64, 128), (16, 8, 16)],
+                                     ids=["qk192_v128", "qk24_v16"])
+
+
+def _mla_operands(b, nb, h, t, nope, rope, hv, dtype, device, seed):
+    return (_randn((b, nb, h, nope), dtype, device, seed),
+            _randn((b, nb, h, rope), dtype, device, seed + 1),
+            _randn((b, t, h, nope), dtype, device, seed + 2),
+            _randn((b, t, rope), dtype, device, seed + 3),
+            _randn((b, t, h, hv), dtype, device, seed + 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@MLA_WIDTHS
+@pytest.mark.parametrize("nb,t_real", [(1, 1), (1, 300), (100, 100), (100, 511),
+                                       (128, 128), (128, 400)])
+def test_extend_kernel_mla_form_matches_plain(hopper, dtype, nope, rope, hv, nb, t_real):
+    """``ops.extend_attention_mla`` (packed [nope ‖ rope] q·k, v width ≠ q·k
+    width, G 1) launches the kernel once and agrees with the plain version
+    on the same packed operands."""
+    b, h, cap = 2, 8, 512
+    qn, qr, kn, kr, v = _mla_operands(b, nb, h, cap, nope, rope, hv, dtype, hopper, 50)
+    before = extend_kernel.KERNEL.launches
+    out = extend_ops.extend_attention_mla(qn, qr, kn, kr, v, t_real=t_real)
+    torch.cuda.synchronize()
+    assert extend_kernel.KERNEL.launches == before + 1
+    assert tuple(out.shape) == (b, nb, h, hv) and out.dtype == dtype
+    q, k = extend_ops.pack_mla(qn, qr, kn, kr)
+    want = extend_attention_ref(q.float(), k.float(), v.float(), t_real=t_real)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _assert_within_one_ulp(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@MLA_WIDTHS
+@pytest.mark.parametrize("small,big,nb,t_real", [(256, 1024, 128, 256), (200, 640, 100, 163),
+                                                 (130, 2176, 1, 97)])
+def test_extend_kernel_mla_form_bit_invariant_to_capacity(hopper, dtype, nope, rope, hv,
+                                                          small, big, nb, t_real):
+    b, h = 1, 4
+    qn, qr, kn, kr, v = _mla_operands(b, nb, h, small, nope, rope, hv, dtype, hopper, 60)
+    _, _, knb, krb, vb = _mla_operands(b, nb, h, big, nope, rope, hv, dtype, hopper, 70)
+    knb, krb, vb = knb * 100, krb * 100, vb * 100
+    knb[:, :small], krb[:, :small], vb[:, :small] = kn, kr, v
+    small_out = extend_ops.extend_attention_mla(qn, qr, kn, kr, v, t_real=t_real)
+    big_out = extend_ops.extend_attention_mla(qn, qr, knb, krb, vb, t_real=t_real)
+    torch.cuda.synchronize()
+    assert torch.equal(small_out, big_out)
+
+
+@pytest.mark.parametrize("hqk,hv", [(24, 24), (192, 192), (128, 192), (24, 32), (48, 16)])
+def test_extend_kernel_raises_on_an_unbuilt_pair(hopper, hqk, hv):
+    q = torch.zeros((1, 4, 4, hqk), device=hopper, dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 4, hqk), device=hopper, dtype=torch.bfloat16)
+    v = torch.zeros((1, 64, 4, hv), device=hopper, dtype=torch.bfloat16)
+    before = extend_kernel.KERNEL.launches
+    with pytest.raises(ValueError, match="not built"):
+        extend_ops.extend_attention(q, k, v, t_real=8)
+    assert extend_kernel.KERNEL.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 8, 8), (32, 1, 16)])
 def test_decode_kernel_matches_plain(hopper, dtype, hd, kv, g):

@@ -135,6 +135,6 @@ def test_init_layout_and_unported_layers():
     np.testing.assert_allclose(float(params["embed"].std()), 0.02, rtol=0.1)
     import dataclasses
 
-    from repro_torch.configs.base import MoEConfig
+    from repro_torch.configs.base import SSMConfig
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        param_specs(dataclasses.replace(cfg, moe=MoEConfig(8, 2, 64)))
+        param_specs(dataclasses.replace(cfg, ssm=SSMConfig()))
