@@ -6,7 +6,8 @@
 from the root of a checkout, on a machine with a CUDA card of compute
 capability 9.0 and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``).  It builds the
 port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
-``nvcc`` each, in parallel) and runs:
+``nvcc`` each, in parallel; each template instance's registers and spills
+printed) and runs:
 
   1. device: the card's name, count, and ``nvidia-smi`` name/power limit;
   2. every kernel against its plain PyTorch version on the card, at the
@@ -20,11 +21,15 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
      128 / 2049 / 4096; then q·k 24 / v 16) against the fp32 plain version
      with the same tolerances and bitwise invariant to capacity (2176 vs
      4160), timed beside SDPA on the same mask and beside the packing it
-     needs; the decode
+     needs; extend's nemotron form (q·k = v = 192 at G 12, B1 KV8,
+     capacity 4160, nb 128 / 1 / 100 by t_real 128 / 2049 / 4096) with the
+     same tolerances, bitwise invariant to capacity (2176 vs 4160) and
+     timed at nb 128, t_real 4096; the decode
      kernel also against the plain form of its split-KV algorithm, bitwise
      invariant to padded capacity within one split and across several
      (caps 2048 vs 8192), and bitwise the same for a row alone and in a
-     batch; the int8 dequant kernel bitwise against its plain
+     batch, at hd 128 (G 8) and at hd 192 (G 12, B1 at position 3072 and
+     B4); the int8 dequant kernel bitwise against its plain
      version; each kernel's time (CUDA events, L2 flushed between
      launches) beside its bound, the plain version's time and one PyTorch
      library call's time (a yardstick the port never calls), the attention
@@ -45,7 +50,14 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
      ``deepseek-67b``: fp32 with a plain store and an int8 tiered store
      (identical tokens, plans and stores, logits within
      ``REDUCED_FP32_LOGIT_ATOL``), and bf16 (logits within
-     ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps);
+     ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps); then ``nemotron-4-340b``
+     (squared-ReLU) the same two ways, reduced (hd 16) and reduced-wide
+     (24 / 2 heads at hd 192, so G 12 and hd 192 reach both kernels), and
+     ``SessionManager`` over reduced-wide as for ``deepseek-67b``; then
+     reduced ``phi3-medium-14b``, ``qwen3-32b``, ``mixtral-8x7b`` and
+     ``kimi-k2-1t-a32b`` in fp32 with both stores; the card must launch
+     the extend kernel, and the decode kernel where the stack has
+     attention layers;
   4. the main path at full width: ``deepseek-67b`` widths, bf16, depth cut
      from 95 to 24 layers so the weights fit one 80 GB card, a 4096-token
      document, chunk 128, requests with prefixes 2048, 4096, 3072 (16 new
@@ -93,6 +105,15 @@ port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
      and the logits must be finite; then ``torch.profiler`` over one
      extend step and one decode step, with one MoE layer's device time
      measured alone.
+ 11. GQA at head dim 192 at full width, after phase 10's model is freed:
+     ``nemotron-4-340b`` widths (d 18432, 96 / 8 heads, hd 192, d_ff 73728
+     squared-ReLU, vocab 256000 untied), bf16, depth cut from 96 to 4
+     layers (23.26 B parameters), phase 4's document and requests;
+     requests 2 and 3 must reuse stored segments, the replay must give
+     identical tokens, the extend kernel's launches must equal 4 x the
+     extend calls and the decode kernel's 4 x the decode calls, the logits
+     must be finite; then phase 5's profile of decode steps and a
+     128-token extend.
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -121,8 +142,9 @@ Any failure exits non-zero.  The last two lines are the ``nvidia-smi``
 line and ``{"ok": true, "device": {...}}``; the line before them lists
 every kernel with its launches (on its own main path: batched serving,
 phase 9, for the attention kernels, the MLA main path, phase 10, for
-extend's MLA form, the residency phase for the dequant kernel, analytics
-for the statistics kernels) and times.
+extend's MLA form, phase 11 for the two attention kernels' hd-192 forms,
+the residency phase for the dequant kernel, analytics for the statistics
+kernels) and times.
 """
 from __future__ import annotations
 
@@ -148,6 +170,13 @@ FULL_LAYERS = 24
 #: phase 10's depth: deepseek-v2-236b cut from 60 layers to its first dense
 #: layer and three MoE layers (13.3 B parameters, 24.8 GiB in bf16)
 MLA_LAYERS = 4
+#: phase 11's depth: nemotron-4-340b cut from 96 layers to 4 (23.26 B
+#: parameters, 43.3 GiB in bf16, embedding and untied head included)
+NEMOTRON_LAYERS = 4
+#: the configs whose layers the port already ran before nemotron (GQA at hd
+#: 128, qk-norm, MoE on every layer, a first dense layer and a shared
+#: expert): phase 3 holds each reduced one on the card against the CPU
+ARCHS_8A = ("phi3-medium-14b", "qwen3-32b", "mixtral-8x7b", "kimi-k2-1t-a32b")
 
 
 def fail(msg: str) -> None:
@@ -165,15 +194,20 @@ def ptxas_summary(log: str) -> list[str]:
     its template arguments, registers and spills."""
     import re
 
+    # template arguments: a type (float, bf16), an int, a bool
+    arg = re.compile(r"(f|13__nv_bfloat16)|Li(\d+)E|Lb([01])E")
     out, name, spill = [], None, ""
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            m = re.search(r"\d+([a-z_]+kernel)(I(?:Li\d+E)+E)?", mangled)
+            m = re.search(r"\d+([a-z_]+kernel)(I(?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+E)?",
+                          mangled)
             name = mangled[:60] if m is None else m.group(1) + (
-                "" if m.group(2) is None
-                else "<" + ", ".join(re.findall(r"Li(\d+)E", m.group(2))) + ">")
+                "" if m.group(2) is None else "<" + ", ".join(
+                    {"f": "float", "13__nv_bfloat16": "bf16"}.get(t, n or
+                                                                  ("true" if b == "1" else "false"))
+                    for t, n, b in arg.findall(m.group(2))) + ">")
             spill = ""
         elif "spill stores" in line:
             spill = line.strip()
@@ -242,45 +276,55 @@ def randn(shape, dtype, device, seed):
     return torch.randn(shape, generator=g, device=device).to(dtype)
 
 
-def extend_phase(dev, timer) -> dict:
+#: phase 2's extend shapes (nb, t_real) at G 8, hd 128: the main path's
+#: chunk; a 1-token extend; nb 100, where G*nb = 800 is not a multiple of
+#: the kernel's 64-row blocks (a block straddles two heads)
+EXTEND_SHAPES = ((128, 128), (128, 2049), (128, 4096), (1, 1), (1, 3000),
+                 (100, 100), (100, 4096))
+#: and at nemotron's G 12, hd 192 (phase 11's form): every pair of nb 128, 1,
+#: 100 and t_real 128, 2049, 4096
+EXTEND_SHAPES_192 = tuple((n, t) for n in (128, 1, 100) for t in (128, 2049, 4096))
+
+
+def extend_phase(dev, timer, *, g: int = 8, hd: int = 128, cap: int = 4096,
+                 shapes=EXTEND_SHAPES, name: str = "extend_attention") -> dict:
+    """The GQA extend kernel at B1 KV8 (G ``g``, head dim ``hd``, capacity
+    ``cap``) against its fp32 plain version, bitwise invariant to capacity
+    (2176 vs ``cap``), then timed at nb 128, t_real 4096."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels.common import within_bf16_ulp
     from repro_torch.kernels.extend_attention.ops import extend_attention
     from repro_torch.kernels.extend_attention.ref import extend_attention_ref
 
-    b, kv, g, hd, nb, cap = 1, 8, 8, 128, 128, 4096
+    b, kv, nb = 1, 8, 128
     h = kv * g
     err = {}
     for dtype, (rtol, atol) in ((torch.float32, (1e-4, 1e-5)),
                                 (torch.bfloat16, (2e-2, 2e-2))):
         k = randn((b, cap, kv, hd), dtype, dev, 2)
         v = randn((b, cap, kv, hd), dtype, dev, 3)
-        # the main path's chunk; a 1-token extend; nb 100, where G*nb = 800
-        # is not a multiple of the kernel's 64-row blocks (a block straddles
-        # two heads)
-        for n, t_real in ((nb, 128), (nb, 2049), (nb, 4096), (1, 1), (1, 3000),
-                          (100, 100), (100, 4096)):
+        for n, t_real in shapes:
             q = randn((b, n, h, hd), dtype, dev, 1)
             got = extend_attention(q, k, v, t_real=t_real)
             want = extend_attention_ref(q.float(), k.float(), v.float(),
                                         t_real=t_real)
             torch.cuda.synchronize()
             ok, e = within(got, want, rtol, atol)
-            line = (f"  extend {str(dtype)[6:]:8s} nb {n:3d} t_real {t_real:4d}: "
-                    f"max |err| {e:.3g} (rtol {rtol}, atol {atol})")
+            line = (f"  extend G{g} hd{hd} {str(dtype)[6:]:8s} nb {n:3d} t_real "
+                    f"{t_real:4d}: max |err| {e:.3g} (rtol {rtol}, atol {atol})")
             ulp_ok, worst = True, 0.0
             if dtype == torch.bfloat16:
                 ulp_ok, worst = within_bf16_ulp(got, want)
                 line += f"; error up to {worst:.3f}x one bf16 ulp + 1e-6"
             print(line)
             check(ok, f"extend kernel disagrees with its plain version "
-                      f"({dtype}, nb {n}, t_real {t_real}, max err {e})")
-            check(ulp_ok, f"bf16 extend kernel strays past one bf16 ulp of its "
-                          f"fp32 plain version (nb {n}, t_real {t_real}, {worst:.3f}x)")
+                      f"(G {g}, hd {hd}, {dtype}, nb {n}, t_real {t_real}, max err {e})")
+            check(ulp_ok, f"bf16 extend kernel strays past one bf16 ulp of its fp32 plain "
+                          f"version (G {g}, hd {hd}, nb {n}, t_real {t_real}, {worst:.3f}x)")
             err[(dtype, n, t_real)] = e
 
-        # bit-invariance to padded capacity, garbage tail: caps 2176 vs 4096
+        # bit-invariance to padded capacity, garbage tail: caps 2176 vs cap
         small = 2176
         q = randn((b, nb, h, hd), dtype, dev, 1)
         ks, vs = k[:, :small].contiguous(), v[:, :small].contiguous()
@@ -290,10 +334,10 @@ def extend_phase(dev, timer) -> dict:
         for t_real in (2100, small):
             same = torch.equal(extend_attention(q, ks, vs, t_real=t_real),
                                extend_attention(q, kb, vb, t_real=t_real))
-            print(f"  extend {str(dtype)[6:]:8s} bit-invariant caps {small} vs {cap}, "
-                  f"t_real {t_real}: {same}")
-            check(same, f"extend output depends on padded capacity ({dtype}, "
-                        f"t_real {t_real})")
+            print(f"  extend G{g} hd{hd} {str(dtype)[6:]:8s} bit-invariant caps {small} vs "
+                  f"{cap}, t_real {t_real}: {same}")
+            check(same, f"extend output depends on padded capacity (G {g}, hd {hd}, "
+                        f"{dtype}, t_real {t_real})")
         del kb, vb
 
     # timing at the largest chunk of the main path: t_real 4096, bf16
@@ -321,7 +365,7 @@ def extend_phase(dev, timer) -> dict:
     print(f"  extend timing [{shape}]: kernel {ms:.4f} ms per call ({dev_ms:.4f} ms "
           f"device), bound {bound_ms:.6f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
           f"sdpa {lib_s}")
-    return {"name": "extend_attention", "ms": ms, "plain_ms": plain_ms,
+    return {"name": name, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": max(e for (dt, *_), e in err.items() if dt == dtype),
             "shape": shape}
@@ -437,48 +481,55 @@ def extend_mla_phase(dev, timer) -> dict:
 DECODE_BF16_SPLIT_TOL = (1e-2, 2e-3)
 
 
-def decode_phase(dev, timer) -> dict:
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
+def decode_phase(dev, timer, *, g: int = 8, hd: int = 128,
+                 name: str = "decode_attention", pack: bool = True) -> dict:
+    """The decode kernel at KV8 (G ``g``, head dim ``hd``) against its plain
+    versions at B4, bitwise invariant to capacity and to the batch; with
+    ``pack``, also at phase 9's merged pack.  Timed at B1 (the serving step,
+    position 3072), B4 and the pack; returns the pack's row, or without one
+    the serving step's (phase 11's shape)."""
     from repro_torch.kernels.common import within_bf16_ulp
     from repro_torch.kernels.decode_attention.kernel import SPLIT
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (decode_attention_blocked,
                                                           decode_attention_split)
 
-    b, kv, g, hd, cap = 4, 8, 8, 128, 4096
+    b, kv, cap = 4, 8, 4096
     h = kv * g
     split = SPLIT
-    pos = torch.tensor([0, 1000, 2049, cap - 1], dtype=torch.int32, device=dev)
     err = {}
     for dtype, (rtol, atol) in ((torch.float32, (1e-4, 1e-5)),
                                 (torch.bfloat16, (2e-2, 2e-2))):
-        q = randn((b, 1, h, hd), dtype, dev, 4)
-        k = randn((b, cap, kv, hd), dtype, dev, 5)
-        v = randn((b, cap, kv, hd), dtype, dev, 6)
-        got = decode_attention(q, k, v, pos=pos).reshape(b, kv, g, hd)
-        qg = q.float()[:, 0].reshape(b, kv, g, hd)
-        want_split = decode_attention_split(qg, k.float(), v.float(), pos, split=split)
-        checks = [("blocked", decode_attention_blocked(qg, k.float(), v.float(), pos),
-                   (rtol, atol)),
-                  (f"split {split}", want_split, (rtol, atol))]
-        if dtype == torch.bfloat16:     # the tensor-core path, held tighter
-            checks.append((f"split {split}", want_split, DECODE_BF16_SPLIT_TOL))
-        for label, want, (rt, at) in checks:
-            torch.cuda.synchronize()
-            ok, e = within(got, want, rt, at)
-            print(f"  decode {str(dtype)[6:]:8s} pos {pos.tolist()} vs {label}: "
-                  f"max |err| {e:.3g} (rtol {rt}, atol {at})")
-            check(ok, f"decode kernel disagrees with its plain version "
-                      f"({label}, {dtype}, rtol {rt}, atol {at}, max err {e})")
-            err[dtype] = max(err.get(dtype, 0.0), e)
-        if dtype == torch.bfloat16:     # and within one bf16 ulp of both
-            for label, want, _ in checks[:2]:
-                ok, worst = within_bf16_ulp(got, want)
-                print(f"  decode bfloat16 pos {pos.tolist()} vs {label}: error up to "
-                      f"{worst:.3f}x one bf16 ulp + 1e-6")
-                check(ok, f"bf16 decode kernel strays past one bf16 ulp of its fp32 "
-                          f"plain version ({label}, {worst:.3f}x)")
+        # the serving step (B1 at position 3072), then B4 (kept for the
+        # invariance checks below)
+        for b, cap, pos in ((1, 3088, [3072]), (4, 4096, [0, 1000, 2049, 4095])):
+            pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+            q = randn((b, 1, h, hd), dtype, dev, 4)
+            k = randn((b, cap, kv, hd), dtype, dev, 5)
+            v = randn((b, cap, kv, hd), dtype, dev, 6)
+            got = decode_attention(q, k, v, pos=pos).reshape(b, kv, g, hd)
+            qg = q.float()[:, 0].reshape(b, kv, g, hd)
+            want_split = decode_attention_split(qg, k.float(), v.float(), pos, split=split)
+            checks = [("blocked", decode_attention_blocked(qg, k.float(), v.float(), pos),
+                       (rtol, atol)),
+                      (f"split {split}", want_split, (rtol, atol))]
+            if dtype == torch.bfloat16:     # the tensor-core path, held tighter
+                checks.append((f"split {split}", want_split, DECODE_BF16_SPLIT_TOL))
+            for label, want, (rt, at) in checks:
+                torch.cuda.synchronize()
+                ok, e = within(got, want, rt, at)
+                print(f"  decode G{g} hd{hd} {str(dtype)[6:]:8s} B{b} pos {pos.tolist()} vs "
+                      f"{label}: max |err| {e:.3g} (rtol {rt}, atol {at})")
+                check(ok, f"decode kernel disagrees with its plain version (G {g}, hd {hd}, "
+                          f"B{b}, {label}, {dtype}, rtol {rt}, atol {at}, max err {e})")
+                err[dtype] = max(err.get(dtype, 0.0), e)
+            if dtype == torch.bfloat16:     # and within one bf16 ulp of both
+                for label, want, _ in checks[:2]:
+                    ok, worst = within_bf16_ulp(got, want)
+                    print(f"  decode G{g} hd{hd} bfloat16 B{b} pos {pos.tolist()} vs {label}: "
+                          f"error up to {worst:.3f}x one bf16 ulp + 1e-6")
+                    check(ok, f"bf16 decode kernel strays past one bf16 ulp of its fp32 "
+                              f"plain version (G {g}, hd {hd}, B{b}, {label}, {worst:.3f}x)")
 
         # bit-invariance to padded capacity, garbage tail: one split (caps
         # 256 vs 2048) and several splits through the combine (2048 vs 8192)
@@ -491,17 +542,21 @@ def decode_phase(dev, timer) -> dict:
             kb[:, :small], vb[:, :small] = ks, vs
             same = torch.equal(decode_attention(q, ks, vs, pos=p_small),
                                decode_attention(q, kb, vb, pos=p_small))
-            print(f"  decode {str(dtype)[6:]:8s} bit-invariant caps {small} vs {big}, "
-                  f"pos {pos_list}: {same}")
-            check(same, f"decode output depends on padded capacity ({dtype}, "
-                        f"caps {small} vs {big})")
+            print(f"  decode G{g} hd{hd} {str(dtype)[6:]:8s} bit-invariant caps {small} vs "
+                  f"{big}, pos {pos_list}: {same}")
+            check(same, f"decode output depends on padded capacity (G {g}, hd {hd}, "
+                        f"{dtype}, caps {small} vs {big})")
             del kb, vb
         # a row's output does not depend on the rest of the batch
         full = decode_attention(q, k, v, pos=pos)
         alone = all(torch.equal(full[r:r + 1], decode_attention(
             q[r:r + 1], k[r:r + 1], v[r:r + 1], pos=pos[r:r + 1])) for r in range(b))
-        print(f"  decode {str(dtype)[6:]:8s} each row alone == in the batch of {b}: {alone}")
-        check(alone, f"decode output of a row depends on its batch ({dtype})")
+        print(f"  decode G{g} hd{hd} {str(dtype)[6:]:8s} each row alone == in the batch "
+              f"of {b}: {alone}")
+        check(alone, f"decode output of a row depends on its batch (G {g}, hd {hd}, "
+                     f"{dtype})")
+    if not pack:
+        return decode_timing(dev, timer, g=g, hd=hd, name=name, err=err[torch.bfloat16])
 
     # phase 9's merged pack, the shape whose launches the kernels line
     # reports: B 8 at capacity 4160, whose last 128-position split is
@@ -535,10 +590,29 @@ def decode_phase(dev, timer) -> dict:
                           f"plain version at phase 9's pack ({label}, {worst:.3f}x)")
             pack_err = max(pack_err, e)
     del q, k, v, qg
+    return decode_timing(dev, timer, g=g, hd=hd, name=name, err=pack_err,
+                         pack=(pb, pcap, pack_pos))
 
+
+def decode_timing(dev, timer, *, g: int, hd: int, name: str, err: float,
+                  pack=None) -> dict:
+    """The bf16 decode kernel timed at B1 (the serving step at position
+    3072), B4 and, given ``pack`` = (B, capacity, positions), phase 9's
+    merged pack, each beside its bound, plain version and SDPA; returns the
+    pack's row, or the serving step's without one."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels.decode_attention.kernel import SPLIT
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_blocked
+
+    kv, dtype, split = 8, torch.bfloat16, SPLIT
+    h = kv * g
+    shapes = {"B1": (1, 3088, [3072]), "B4": (4, 4096, [0, 1000, 2049, 4095])}
+    if pack is not None:
+        shapes[f"B{pack[0]}"] = pack
     rows = {}
-    for shape, (bb, cc, pp) in (("B1", (1, 3088, [3072])), ("B4", (b, cap, pos.tolist())),
-                                (f"B{pb}", (pb, pcap, pack_pos))):
+    for shape, (bb, cc, pp) in shapes.items():
         q = randn((bb, 1, h, hd), dtype, dev, 4)
         k = randn((bb, cc, kv, hd), dtype, dev, 5)
         v = randn((bb, cc, kv, hd), dtype, dev, 6)
@@ -555,16 +629,15 @@ def decode_phase(dev, timer) -> dict:
         flops = 4.0 * hd * h * keys
         nbytes = 2 * (2 * q.numel() + 2 * keys * kv * hd) + 4 * bb
         bound_ms, bound_by = bound(flops, nbytes, dtype)
-        rows[shape] = {"name": "decode_attention", "ms": ms, "plain_ms": plain_ms,
+        rows[shape] = {"name": name, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by,
-                       "max_abs_err": pack_err if bb == pb else err[dtype],
+                       "bound_by": bound_by, "max_abs_err": err,
                        "shape": f"B{bb} KV{kv} G{g} hd{hd} cap{cc} pos{pp} bf16"}
         lib = "n/a" if library_ms is None else f"{library_ms:.4f}"
         print(f"  decode timing [{rows[shape]['shape']}, split {split}]: kernel "
               f"{ms:.4f} ms per call ({dev_ms:.4f} ms device), bound {bound_ms:.6f} ms "
               f"({bound_by}), plain {plain_ms:.4f} ms, sdpa {lib} ms")
-    return rows[f"B{pb}"]      # the kernels line describes phase 9's pack
+    return rows["B1" if pack is None else f"B{pack[0]}"]
 
 
 # ---------------------------------------------------------------------------
@@ -1112,16 +1185,28 @@ def quant_kv_phase(dev, timer) -> dict:
 REDUCED_FP32_LOGIT_ATOL = 1e-4
 
 
-def reduced_parity(dev, arch: str = "deepseek-67b") -> None:
-    from repro_torch.configs import get_config, reduced
+def reduced_wide(cfg):
+    """``reduced(cfg)`` at 24 query heads over 2 KV heads of width 192:
+    nemotron-4-340b's G 12 and head dim 192 at the reduced model's size."""
+    from repro_torch.configs import reduced
+
+    return dataclasses.replace(reduced(cfg), n_heads=24, n_kv_heads=2, head_dim=192)
+
+
+def reduced_parity(dev, cfg) -> None:
+    """A reduced fp32 config in ``ServeEngine`` on the card against the
+    same on the CPU, with a plain store and an int8 store on host and disk
+    tiers: identical tokens, plans and stores, logits within
+    ``REDUCED_FP32_LOGIT_ATOL``; the card must launch the extend kernel,
+    and the decode kernel where the stack has attention layers."""
     from repro_torch.core.descriptors import Range
+    from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.extend_attention import kernel as ek
     from repro_torch.models.common import tree_map_with_path
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.kv_cache import SegmentStore
 
-    cfg = reduced(get_config(arch))
     cpu_model = LM(cfg, device="cpu")
     cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
     gpu_model = LM(cfg, device=dev)
@@ -1144,7 +1229,7 @@ def reduced_parity(dev, arch: str = "deepseek-67b") -> None:
                     spill_dir=spill / f"{name}-{len(engines)}", device=m.device, **store_kw)
                 engines[name] = ServeEngine(m, p, doc, chunk_tokens=64, device=m.device,
                                             **({} if store is None else {"store": store}))
-            launches = ek.KERNEL.launches
+            launches, decodes = ek.KERNEL.launches, dk.KERNEL.launches
             for prefix, n_new in ((200, 4), (256, 4), (130, 4), (256, 4)):
                 out = {}
                 for name, eng in engines.items():
@@ -1157,11 +1242,14 @@ def reduced_parity(dev, arch: str = "deepseek-67b") -> None:
                       f"reduced model ({label}): card and CPU disagree at prefix "
                       f"{prefix}: {out}")
             launches = ek.KERNEL.launches - launches
+            decodes = dk.KERNEL.launches - decodes
             widths = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
                        cfg.mla.v_head_dim) if cfg.mla else (cfg.head_dim, cfg.head_dim))
             print(f"  {label}: extend kernel launches on the card at (q·k, v) widths "
-                  f"{widths}: {launches}")
+                  f"{widths}: {launches}; decode kernel launches: {decodes}")
             check(launches > 0, f"reduced model ({label}): the card ran no extend kernel")
+            check(cfg.mla is not None or decodes > 0,
+                  f"reduced model ({label}): the card ran no decode kernel")
             st = {}
             for name, eng in engines.items():
                 eng.store.flush_saves()
@@ -1190,7 +1278,8 @@ def reduced_parity(dev, arch: str = "deepseek-67b") -> None:
                   f"reduced model ({label}): card and CPU logits differ by {d}")
     finally:
         shutil.rmtree(spill, ignore_errors=True)
-    print(f"  reduced {arch} cuda-vs-cpu: identical plans, tokens and stores: True")
+    print(f"  reduced {cfg.name} (G {cfg.n_heads // cfg.n_kv_heads}, hd {cfg.head_dim}) "
+          f"cuda-vs-cpu: identical plans, tokens and stores: True")
 
 
 #: phase 3's bf16 run: the card's logits within this many bf16 ulps of the
@@ -1203,19 +1292,17 @@ def reduced_parity(dev, arch: str = "deepseek-67b") -> None:
 REDUCED_BF16_LOGIT_ULPS = 4
 
 
-def reduced_bf16_parity(dev, arch: str = "deepseek-67b") -> None:
-    """Reduced ``arch`` with bf16 params and compute: the card (the bf16
+def reduced_bf16_parity(dev, cfg) -> None:
+    """A reduced config with bf16 params and compute: the card (the bf16
     kernels) against the CPU's plain route (fp32 attention math, fp32 P),
     at the logits of three prefixes and in greedy streams; the CPU's fp32
     run on the same weights gives the scale of bf16 rounding."""
-    from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.common import bf16_ulp
     from repro_torch.models.common import tree_map_with_path
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = dataclasses.replace(reduced(get_config(arch)),
-                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16")
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     cpu_params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     runs = {"cpu": (LM(cfg, device="cpu"), cpu_params),
@@ -1282,18 +1369,15 @@ def store_state(store) -> tuple:
     return segs, sorted(store._doc_stats.items()), store.evictions
 
 
-def reduced_sessions(dev) -> None:
-    """``SessionManager`` on reduced ``deepseek-67b`` (fp32): the card's
-    greedy streams, plans and segment ids equal the CPU's under a byte
-    budget; on the card, merged packs stream as capacity-split ones, and
-    async prefill gives sync prefill's sampled streams and store, payloads
-    bitwise."""
-    from repro_torch.configs import get_config, reduced
+def reduced_sessions(dev, cfg) -> None:
+    """``SessionManager`` on a reduced fp32 config: the card's greedy
+    streams, plans and segment ids equal the CPU's under a byte budget; on
+    the card, merged packs stream as capacity-split ones, and async prefill
+    gives sync prefill's sampled streams and store, payloads bitwise."""
     from repro_torch.models.common import tree_leaves, tree_map_with_path
     from repro_torch.models.lm import LM
     from repro_torch.serve.session import SessionManager
 
-    cfg = reduced(get_config("deepseek-67b"))
     cpu_model = LM(cfg, device="cpu")
     cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
     gpu_model = LM(cfg, device=dev)
@@ -1525,25 +1609,20 @@ def where_time_goes(eng, dev) -> None:
 # phase 10: the MLA main path at full width
 # ---------------------------------------------------------------------------
 
-def mla_main_path(dev) -> dict:
-    """``deepseek-v2-236b`` at full width, depth cut to ``MLA_LAYERS``, bf16,
-    through ``ServeEngine``: phase 4's document and requests; returns the
-    extend kernel's launches (the MLA form's main path)."""
-    from repro_torch.configs import get_config
+def serve_full_width(cfg, dev) -> tuple:
+    """``cfg`` at its published widths (depth already cut), bf16, through
+    ``ServeEngine``: phase 4's document and requests (prefixes 2048, 4096,
+    3072 and a replay of 2048, 16 new tokens each), with the extend and
+    decode kernels' launches and the model's extend and decode calls
+    counted.  Requests 2 and 3 must reuse stored segments, the replay must
+    give identical tokens and the logits must be finite.  Returns (engine,
+    counts, attention layers)."""
+    from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.extend_attention import kernel as ek
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.lm import LM
     from repro_torch.serve.engine import ServeEngine
 
-    base = get_config("deepseek-v2-236b")
-    cfg = dataclasses.replace(base, n_layers=MLA_LAYERS)
-    m, moe = cfg.mla, cfg.moe
-    print(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}, MLA q_lora "
-          f"{m.q_lora_rank} kv_lora {m.kv_lora_rank} q·k {m.qk_nope_head_dim}+"
-          f"{m.qk_rope_head_dim} v {m.v_head_dim}, MoE {moe.n_experts} experts top-"
-          f"{moe.top_k} d_ff {moe.d_ff_expert} + {moe.n_shared} shared, dense d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}; n_layers cut "
-          f"{base.n_layers} -> {cfg.n_layers} to fit one 80 GB card")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     model = LM(cfg, device=dev)
@@ -1554,20 +1633,21 @@ def mla_main_path(dev) -> dict:
              for spec in period]
     print(f"  init: {n_params / 1e9:.2f} B params on the card in "
           f"{time.perf_counter() - t0:.1f} s; layers {kinds}")
-    mla_layers = sum(n for period, n in model.segments for spec in period
-                     if spec.mixer == "mla")
+    layers = sum(n for period, n in model.segments for _ in period)
     doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 4096).astype(np.int32)
     eng = ServeEngine(model, params, doc, chunk_tokens=128, device=dev)
-    extend_calls = 0
-    prefill_extend = model.prefill_extend
+    calls = {"extend": 0, "decode": 0}
 
-    def counted(*args, **kw):               # prefill_extend_many calls it per chunk
-        nonlocal extend_calls
-        extend_calls += 1
-        return prefill_extend(*args, **kw)
+    def counted(name, fn):                  # prefill_extend_many extends per chunk
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
 
-    model.prefill_extend = counted
+    model.prefill_extend = counted("extend", model.prefill_extend)
+    model.decode_step = counted("decode", model.decode_step)
     ek.KERNEL.launches = 0
+    dk.KERNEL.launches = 0
     results = []
     for prefix in (2048, 4096, 3072, 2048):
         s0 = dataclasses.replace(eng.stats)
@@ -1584,25 +1664,75 @@ def mla_main_path(dev) -> dict:
     logits, _, _ = eng.builder.prefix_with_logits(doc, 3072, doc_id=eng.doc_id,
                                                   capacity=3088)
     torch.cuda.synchronize(dev)
-    launches = ek.KERNEL.launches
-    model.prefill_extend = prefill_extend
+    counts = {"extend_calls": calls["extend"], "decode_calls": calls["decode"],
+              "extend": ek.KERNEL.launches, "decode": dk.KERNEL.launches}
+    del model.prefill_extend, model.decode_step       # the class's methods again
     check(tuple(logits.shape) == (1, cfg.vocab_size)
           and bool(torch.isfinite(logits.float()).all()),
-          f"full-width MLA logits not finite or mis-shaped: {tuple(logits.shape)}")
+          f"full-width {cfg.name} logits not finite or mis-shaped: {tuple(logits.shape)}")
     check(all(len(r[2].models_used) > 0 for r in results[1:3]),
-          "MLA requests 2 and 3 did not reuse stored segments")
+          f"{cfg.name}: requests 2 and 3 did not reuse stored segments")
     check(results[3][1] == results[0][1],
-          "MLA replayed request from stored segments changed its tokens")
-    print(f"  extend launches {launches} = {mla_layers} MLA layers x {extend_calls} "
-          f"extend calls: {launches == mla_layers * extend_calls}")
-    check(extend_calls > 0 and launches == mla_layers * extend_calls,
-          f"MLA extend launches {launches} != {mla_layers} x {extend_calls} extend calls")
+          f"{cfg.name}: the replayed request from stored segments changed its tokens")
     mem = torch.cuda.max_memory_allocated(dev)
     print("  replay of prefix 2048 from the store: identical tokens: True")
     print(f"  store: {len(eng.store)} segments, {eng.store.nbytes() / 2**20:.1f} MiB; "
           f"max memory allocated {mem / 2**30:.2f} GiB")
+    return eng, counts, layers
+
+
+def mla_main_path(dev) -> dict:
+    """``deepseek-v2-236b`` at full width, depth cut to ``MLA_LAYERS``, bf16,
+    through ``ServeEngine`` (:func:`serve_full_width`); returns the extend
+    kernel's launches (the MLA form's main path)."""
+    from repro_torch.configs import get_config
+
+    base = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(base, n_layers=MLA_LAYERS)
+    m, moe = cfg.mla, cfg.moe
+    print(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}, MLA q_lora "
+          f"{m.q_lora_rank} kv_lora {m.kv_lora_rank} q·k {m.qk_nope_head_dim}+"
+          f"{m.qk_rope_head_dim} v {m.v_head_dim}, MoE {moe.n_experts} experts top-"
+          f"{moe.top_k} d_ff {moe.d_ff_expert} + {moe.n_shared} shared, dense d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}; n_layers cut "
+          f"{base.n_layers} -> {cfg.n_layers} to fit one 80 GB card")
+    eng, counts, layers = serve_full_width(cfg, dev)
+    launches, calls = counts["extend"], counts["extend_calls"]
+    print(f"  extend launches {launches} = {layers} MLA layers x {calls} "
+          f"extend calls: {launches == layers * calls}")
+    check(calls > 0 and launches == layers * calls,
+          f"MLA extend launches {launches} != {layers} x {calls} extend calls")
     mla_where_time_goes(eng, dev)
     return {"extend_attention_mla": launches}
+
+
+def nemotron_main_path(dev) -> dict:
+    """``nemotron-4-340b`` at full width, depth cut to ``NEMOTRON_LAYERS``,
+    bf16, through ``ServeEngine`` (:func:`serve_full_width`): the GQA stack
+    at head dim 192, G 12, with squared-ReLU MLPs.  Each extend call must
+    launch the extend kernel once a layer and each decode call the decode
+    kernel once a layer; then phase 5's profile of a decode step and a
+    128-token extend.  Returns the two kernels' launches (the hd-192 forms'
+    main path)."""
+    from repro_torch.configs import get_config
+
+    base = get_config("nemotron-4-340b")
+    cfg = dataclasses.replace(base, n_layers=NEMOTRON_LAYERS)
+    print(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} KV (G {cfg.n_heads // cfg.n_kv_heads}), head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} {cfg.activation}, vocab {cfg.vocab_size} "
+          f"(untied head), {cfg.param_dtype}; n_layers cut {base.n_layers} -> "
+          f"{cfg.n_layers} to fit one 80 GB card")
+    eng, counts, layers = serve_full_width(cfg, dev)
+    for name in ("extend", "decode"):
+        launches, calls = counts[name], counts[f"{name}_calls"]
+        print(f"  {name} launches {launches} = {layers} layers x {calls} {name} calls: "
+              f"{launches == layers * calls}")
+        check(calls > 0 and launches == layers * calls,
+              f"nemotron {name} launches {launches} != {layers} x {calls} {name} calls")
+    where_time_goes(eng, dev)
+    return {"extend_attention_hd192": counts["extend"],
+            "decode_attention_hd192": counts["decode"]}
 
 
 def mla_where_time_goes(eng, dev) -> None:
@@ -2357,7 +2487,11 @@ def main() -> int:
 
     timer = Timer(dev)
     print("[2] kernels vs plain versions on the card")
-    rows = [extend_phase(dev, timer), extend_mla_phase(dev, timer), decode_phase(dev, timer),
+    rows = [extend_phase(dev, timer), extend_mla_phase(dev, timer),
+            extend_phase(dev, timer, g=12, hd=192, cap=4160, shapes=EXTEND_SHAPES_192,
+                         name="extend_attention_hd192"),
+            decode_phase(dev, timer),
+            decode_phase(dev, timer, g=12, hd=192, name="decode_attention_hd192", pack=False),
             quant_kv_phase(dev, timer), linreg_stats_phase(dev, timer),
             nb_stats_phase(dev, timer), logreg_sgd_phase(dev, timer)]
     for r in rows:
@@ -2367,17 +2501,31 @@ def main() -> int:
               f"library {lib} ms")
     del timer
 
+    from repro_torch.configs import get_config, reduced
+
     print("[3] reduced deepseek-67b (fp32): card vs CPU")
-    reduced_parity(dev)
+    reduced_parity(dev, reduced(get_config("deepseek-67b")))
     print("    reduced deepseek-67b (bf16 params and compute): card vs CPU")
-    reduced_bf16_parity(dev)
+    reduced_bf16_parity(dev, reduced(get_config("deepseek-67b")))
     print("    reduced deepseek-67b (fp32): SessionManager, card vs CPU")
-    reduced_sessions(dev)
+    reduced_sessions(dev, reduced(get_config("deepseek-67b")))
     deferred_build_waits_for_nothing(dev)
     print("    reduced deepseek-v2-236b (MLA + MoE, fp32): card vs CPU")
-    reduced_parity(dev, "deepseek-v2-236b")
+    reduced_parity(dev, reduced(get_config("deepseek-v2-236b")))
     print("    reduced deepseek-v2-236b (bf16 params and compute): card vs CPU")
-    reduced_bf16_parity(dev, "deepseek-v2-236b")
+    reduced_bf16_parity(dev, reduced(get_config("deepseek-v2-236b")))
+    nemotron = get_config("nemotron-4-340b")
+    for label, cfg in (("reduced", reduced(nemotron)), ("reduced-wide", reduced_wide(nemotron))):
+        print(f"    {label} nemotron-4-340b (squared-ReLU, G {cfg.n_heads // cfg.n_kv_heads}, "
+              f"hd {cfg.head_dim}; fp32): card vs CPU")
+        reduced_parity(dev, cfg)
+        print(f"    {label} nemotron-4-340b (bf16 params and compute): card vs CPU")
+        reduced_bf16_parity(dev, cfg)
+    print("    reduced-wide nemotron-4-340b (fp32): SessionManager, card vs CPU")
+    reduced_sessions(dev, reduced_wide(nemotron))
+    for arch in ARCHS_8A:
+        print(f"    reduced {arch} (fp32): card vs CPU")
+        reduced_parity(dev, reduced(get_config(arch)))
 
     print(f"[4] full-width main path ({FULL_LAYERS} layers, bf16)")
     counts, eng, ref = main_path(dev)
@@ -2393,6 +2541,10 @@ def main() -> int:
     print(f"[10] MLA main path at full width (deepseek-v2-236b, {MLA_LAYERS} layers, bf16)")
     counts.update(mla_main_path(dev))
     torch.cuda.empty_cache()
+    print(f"[11] GQA at head dim 192 at full width (nemotron-4-340b, {NEMOTRON_LAYERS} "
+          f"layers, bf16)")
+    counts.update(nemotron_main_path(dev))
+    torch.cuda.empty_cache()
 
     print("[7] analytics engine (200K x 10): card vs CPU")
     analytics_parity(dev)
@@ -2407,6 +2559,12 @@ def main() -> int:
                                  "src/repro/kernels/extend_attention/kernel.py:108"),
         "decode_attention": ("src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:103"),
+        "extend_attention_hd192": ("src/repro_torch/kernels/extend_attention/csrc/"
+                                   "extend_attention.cu",
+                                   "src/repro/kernels/extend_attention/kernel.py:108"),
+        "decode_attention_hd192": ("src/repro_torch/kernels/decode_attention/csrc/"
+                                   "decode_attention.cu",
+                                   "src/repro/kernels/decode_attention/kernel.py:103"),
         "quant_kv": ("src/repro_torch/kernels/quant_kv/csrc/quant_kv.cu",
                      "src/repro/kernels/quant_kv/kernel.py:50"),
         "linreg_stats": ("src/repro_torch/kernels/linreg_stats/csrc/linreg_stats.cu",

@@ -74,6 +74,12 @@
 // output is bitwise the same at any padded capacity and in any batch
 // (batched serving merges packs of mixed capacity on this property).
 //
+// Head dims 16, 32, 64, 128 and 192 (nemotron-4-340b: G 12, which takes two
+// N tiles).  At 192 a split block's rings take 102,400 bytes in bf16 and,
+// with the CUDA-core path's q rows and probabilities, 217,408 in fp32; on
+// the tensor cores a lane holds 48 registers of Q^T fragments and 96
+// accumulators at G > 8.
+//
 // Numerics: fp32 softmax and accumulation; output in q's dtype.  The kernel
 // allocates nothing.  k/v must be 16-byte aligned (the wrapper checks).
 
@@ -319,14 +325,16 @@ struct MmaWarp {
 };
 
 // Per-warp online-softmax state on the CUDA cores (fp32 inputs).
-// Scores: lane l takes tile row l%16 against heads l/16 + 2i.  P.V: lane l
-// owns the 16-byte column chunk l % CPL of heads l/CPL + (32/CPL)*i.
+// Scores: lane l takes tile row l%16 against heads l/16 + 2i.  P.V: the
+// warp walks the (head, 16-byte column chunk) pairs idx = l + 32*i, head
+// idx / CPL, chunk idx % CPL, so every chunk of a row is owned by a lane
+// also where a row has more chunks than the warp has lanes (hd 192: 48).
+// Each output element is one lane's sum over the tile rows in order.
 template <typename T, int HD>
 struct ScalarWarp {
   static constexpr int VEC = 16 / sizeof(T);
   static constexpr int CPL = HD / VEC;                 // chunks per row
-  static constexpr int HPL = (MAX_G * CPL + 31) / 32;  // heads per lane, P.V
-  static constexpr int HGRP = 32 / CPL < 1 ? 1 : 32 / CPL;
+  static constexpr int HPL = (MAX_G * CPL + 31) / 32;  // (head, chunk) pairs per lane
   float acc[HPL][VEC];
   float m[MAX_G / 2], l[MAX_G / 2];
   const float* q_s;     // G x (HD + 1), scaled
@@ -392,10 +400,9 @@ struct ScalarWarp {
       }
     }
     __syncwarp();
-    const int cc = lane % CPL;
 #pragma unroll
     for (int i = 0; i < HPL; ++i) {
-      const int g = lane / CPL + HGRP * i;
+      const int idx = lane + 32 * i, g = idx / CPL, cc = idx % CPL;
       if (g < G) {
         const float corr = c_w[g];
 #pragma unroll
@@ -426,11 +433,10 @@ struct ScalarWarp {
         rec[g * (HD + 2) + 1] = sum;
       }
     }
-    const int cc = lane % CPL;
 #pragma unroll
     for (int i = 0; i < HPL; ++i) {
-      const int g = lane / CPL + HGRP * i;
-      if (g < G && lane < CPL * HGRP) {
+      const int idx = lane + 32 * i, g = idx / CPL, cc = idx % CPL;
+      if (g < G) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) rec[g * (HD + 2) + 2 + cc * VEC + e] = acc[i][e];
       }
@@ -614,6 +620,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, out, pos, p, B, H, KV, T_cap, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, pos, p, B, H, KV, T_cap, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, pos, p, B, H, KV, T_cap, scale, s);
+    case 192: return launch<T, 192>(q, k, v, out, pos, p, B, H, KV, T_cap, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

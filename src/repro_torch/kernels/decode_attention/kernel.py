@@ -21,7 +21,7 @@ KERNEL = CudaKernel(SOURCE, "repro_decode_attention",
                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      ctypes.c_float, _I, _P])
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 MAX_GROUP = 16            # query heads per KV head the kernel accepts
 #: positions per split: the source's compile-time ``SPLIT``, which its
 #: entry point checks against the value the wrapper passes

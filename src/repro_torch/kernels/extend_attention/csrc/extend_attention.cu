@@ -10,7 +10,8 @@
 //   q  (B, nb, H, HQK)   k  (B, T, KV, HQK)   v  (B, T, KV, HV)
 //   out  (B, nb, H, HV)  t_real  int32[1] (device)
 // HQK, the q.k width, and HV, the v width, are template parameters: equal for
-// the GQA layout (ops.py::extend_attention), (HQK, HV) = (nope + rope, v) for
+// the GQA layout (ops.py::extend_attention; 16 to 128, and 192 for
+// nemotron-4-340b at G 12), (HQK, HV) = (nope + rope, v) for
 // MLA's packed [nope || rope] layout (ops.py::extend_attention_mla: 192, 128
 // at full width, 24, 16 reduced), where H = KV (G = 1).  The scale is
 // HQK^-0.5, which for MLA is (nope + rope)^-0.5.
@@ -39,8 +40,12 @@
 // softmax, merged (group 0, then group 1) at the end.  Two warps per
 // scheduler hide each other's mma, shuffle and barrier latency.
 //  - Q: the block's 64 x HQK q rows are gathered into shared memory once by
-//    cp.async (each stacked row is one HQK-wide row of q[b, i, kvh*G + g])
-//    and held in registers as A fragments (ldmatrix) for the whole walk.
+//    cp.async (each stacked row is one HQK-wide row of q[b, i, kvh*G + g]).
+//    Up to 128 columns their A fragments (ldmatrix) are held in registers
+//    for the whole walk; past 128 (192) they are read again from the
+//    resident q tile at each k-step of S: held there, 48 fragment registers
+//    beside 64 or 96 output accumulators and the 32 of the S tile spill,
+//    and the re-read is the faster of the two (extend_turns.py times both).
 //    A q.k width that is not a multiple of the mma's k-step of 16 (MLA's
 //    reduced 24) is staged as KD = 32 columns for q and K alike, the last
 //    ones zeroed once: they add exact zeros to S.
@@ -50,7 +55,8 @@
 //    memory, cp.async.cg at 16 bytes a thread, rows padded by 16 bytes (an
 //    odd number of 16-byte chunks, so ldmatrix phases hit distinct banks);
 //    K rows are KD + 8 wide and V rows HV + 8, so at MLA's 192/128 the q
-//    tile and two groups' two-slot rings take 197,632 bytes.
+//    tile and two groups' two-slot rings take 197,632 bytes, and at 192/192
+//    230,400 of the 232,448 a block may have.
 //    Positions at or past t_real are zero-filled by a copy that reads 0
 //    bytes, so nothing past t_real enters a sum, whatever the padding holds.
 //  - S = Q K^T: K is the B operand through ldmatrix (a (pos, KD) row-major
@@ -410,6 +416,7 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KTILE = BN * RSK;               // elements of one K tile
   constexpr int SLOT = BN * (RSK + RSV);        // one ring slot: [K, V]
   constexpr int NO = HV / 8;                    // output N tiles
+  constexpr bool HOLD_Q = KD <= 128;            // q's A fragments in registers
   static_assert(HQK % 8 == 0 && HV % 16 == 0, "16-byte rows, whole P.V k-steps");
   static_assert(sizeof(float) * (4 + NO * 4) * GNT <=
                     sizeof(__nv_bfloat16) * 2 * STAGES * SLOT,
@@ -505,12 +512,14 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   cp_async_wait<STAGES - 1>();                  // q has landed
   __syncthreads();
-  uint32_t qa[KD / 16][4];                      // Q A fragments, whole walk
-  {
-    const __nv_bfloat16* a_row =
-        q_s + (gw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RSK + (lane >> 4) * 8;
+  // this warp's q rows as A fragments: held for the whole walk, or (past
+  // 128 columns) read from q_s at each k-step
+  const __nv_bfloat16* qa_row =
+      q_s + (gw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RSK + (lane >> 4) * 8;
+  uint32_t qa[HOLD_Q ? KD / 16 : 1][4];
+  if constexpr (HOLD_Q) {
 #pragma unroll
-    for (int kk = 0; kk < KD / 16; ++kk) ldmatrix_x4(qa[kk], a_row + kk * 16);
+    for (int kk = 0; kk < KD / 16; ++kk) ldmatrix_x4(qa[kk], qa_row + kk * 16);
   }
 
   const float scale2 = scale * LOG2E;
@@ -539,14 +548,22 @@ extend_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const __nv_bfloat16* b_row =
           kt + ((lane & 7) + (lane >> 4) * 8) * RSK + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int kk = 0; kk < KD / 16; ++kk)
+      for (int kk = 0; kk < KD / 16; ++kk) {
+        uint32_t a[4];
+        if constexpr (HOLD_Q) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+        } else {
+          ldmatrix_x4(a, qa_row + kk * 16);
+        }
 #pragma unroll
         for (int np = 0; np < BN / 16; ++np) {
           uint32_t bf[4];
           ldmatrix_x4(bf, b_row + np * 16 * RSK + kk * 16);
-          mma_bf16(s[2 * np], qa[kk], bf[0], bf[1]);
-          mma_bf16(s[2 * np + 1], qa[kk], bf[2], bf[3]);
+          mma_bf16(s[2 * np], a, bf[0], bf[1]);
+          mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
         }
+      }
 
       // scale in fp32; mask only where the tile reaches past a row's q_pos
       if (t0 + BN - 1 > lo_pos) {
@@ -711,6 +728,7 @@ int dispatch_widths(int hqk, int hv, const void* q, const void* k, const void* v
   if (hqk == A && hv == C)                                                     \
     return launch<T, A, C>(q, k, v, out, t_real, B, nb, H, KV, T_cap, scale, s);
   PAIR(16, 16) PAIR(32, 32) PAIR(64, 64) PAIR(128, 128)   // GQA: HQK = HV
+  PAIR(192, 192)                                          // GQA: nemotron
   PAIR(24, 16) PAIR(192, 128)                             // MLA: reduced, full
 #undef PAIR
   return (int)cudaErrorInvalidValue;

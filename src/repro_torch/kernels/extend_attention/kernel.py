@@ -16,15 +16,18 @@ KERNEL = CudaKernel(SOURCE, "repro_extend_attention",
                      ctypes.c_float, _I, _P])
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the built (q·k width, v width) pairs (``dispatch_widths`` in the source):
-#: equal widths for the GQA layout, MLA's packed [nope ‖ rope] q·k width
-#: against its v width (reduced 16 + 8 / 16, full 128 + 64 / 128)
-PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (24, 16), (192, 128))
+#: equal widths for the GQA layout (192 for ``nemotron-4-340b``), MLA's
+#: packed [nope ‖ rope] q·k width against its v width (reduced 16 + 8 / 16,
+#: full 128 + 64 / 128)
+PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 192), (24, 16), (192, 128))
 
 
-def extend_attention_cuda(q, k, v, t_real):
+def extend_attention_cuda(q, k, v, t_real, *, kernel=KERNEL):
     """Launch the kernel: q (B, nb, H, HQK); k (B, T, KV, HQK); v (B, T, KV,
     HV); ``t_real`` a 0-d int32 CUDA tensor.  Returns (B, nb, H, HV) in q's
-    dtype, with scores scaled by HQK^-0.5."""
+    dtype, with scores scaled by HQK^-0.5.  ``kernel`` names another build
+    of the source (a copy timed by ``extend_turns.py``); the serving path
+    takes the default."""
     b, nb, h, hqk = q.shape
     if (k.ndim != 4 or v.ndim != 4 or k.shape[0] != b or k.shape[3] != hqk
             or v.shape[:3] != k.shape[:3]):
@@ -52,7 +55,7 @@ def extend_attention_cuda(q, k, v, t_real):
                         f"{q.device}")
     out = q.new_empty((b, nb, h, hv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            t_real.data_ptr(), b, nb, h, kv, t, hqk, hv, hqk ** -0.5,
            DTYPES[q.dtype], stream)
     return out

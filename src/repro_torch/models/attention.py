@@ -126,11 +126,27 @@ def extend_attention_cached(p: AttnParams, h, cache_k, cache_v, positions,
     return proj_out(out, p.wo), (cache_k, cache_v)
 
 
+def expand_kv_heads(k, n_heads: int):
+    """Repeat KV heads up to the q-head count (``repro``'s TP alignment)."""
+    kv = k.shape[2]
+    if kv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // kv, dim=2)
+
+
 def self_attention(p: AttnParams, x, positions, *, causal: bool, theta: float,
-                   block: int = 512):
-    """Full self-attention for prefill.  Returns (out, (k, v) cacheable)."""
+                   block: int = 512, expand_kv: bool = False):
+    """Full self-attention for prefill.  Returns (out, (k, v) cacheable);
+    ``expand_kv`` attends over KV heads repeated to the q heads, as
+    ``repro`` does for ``cfg.expand_kv``, and still caches the unexpanded
+    (k, v)."""
     q, k, v = _project_qkv(p, x, x, positions, positions, theta)
-    out = blocked_attention(q, k, v, positions, positions, causal=causal,
+    if expand_kv:
+        h = q.shape[2]
+        k_att, v_att = expand_kv_heads(k, h), expand_kv_heads(v, h)
+    else:
+        k_att, v_att = k, v
+    out = blocked_attention(q, k_att, v_att, positions, positions, causal=causal,
                             block=block)
     return proj_out(out, p.wo), (k, v)
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
 # cache-leaf taxonomy: what each entry of a serving cache tree *is*.  The
@@ -70,6 +71,18 @@ def rms_norm(x, scale, eps: float = 1e-5):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def activation_fn(name: str):
+    """The feed-forward activation ``name`` (``repro.models.common``'s):
+    ``gelu`` is ``jax.nn.gelu``'s default, the tanh approximation."""
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "squared_relu":
+        return lambda x: torch.square(F.relu(x))
+    if name == "silu":
+        return F.silu
+    raise KeyError(name)  # swiglu handled structurally (gate ⊙ up)
 
 
 def rope_angles(positions, head_dim: int, theta: float):

@@ -13,9 +13,9 @@ Serving entry points update caches **in place**: ``prefill_extend`` and
 ``decode_step`` write the new K/V (or latent) rows into the cache tensors
 they are given and return the same tree (JAX returns new arrays).
 
-Ported mixers: GQA attention and MLA; feed-forward layers: dense SwiGLU and
-the routed MoE (``deepseek-v2-236b``).  SSD, cross-attention, other
-activations and ``expand_kv`` wait for ROADMAP.md §1 item 8.
+Ported mixers: GQA attention (with ``repro``'s ``expand_kv`` prefill) and
+MLA; feed-forward layers: dense and routed MoE, SwiGLU or squared-ReLU,
+SiLU and GELU.  SSD and cross-attention wait for ROADMAP.md §1 item 8.
 """
 from __future__ import annotations
 
@@ -180,10 +180,6 @@ def _unsupported(cfg: ArchConfig) -> list[str]:
         why.append("SSD layers")
     if cfg.encoder_layers or cfg.cross_attn_every or cfg.vision_context:
         why.append("cross-attention")
-    if cfg.d_ff and cfg.activation != "swiglu":
-        why.append(f"{cfg.activation} MLPs")
-    if cfg.expand_kv:
-        why.append("expand_kv")
     return why
 
 
@@ -349,7 +345,8 @@ class LM:
             else:
                 mixed, leaves = attn.self_attention(
                     _attn_params(p["mixer"]), h, positions, causal=True,
-                    theta=cfg.rope_theta, block=cfg.attn_block)
+                    theta=cfg.rope_theta, block=cfg.attn_block,
+                    expand_kv=cfg.expand_kv)
             x = self._mlp(spec, p, x + mixed.to(x.dtype))
             kv.setdefault((seg, j), []).append(leaves)
         caches = [

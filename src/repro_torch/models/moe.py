@@ -1,4 +1,5 @@
-"""Feed-forward layers: the dense MLP and the routed mixture of experts.
+"""Feed-forward layers: the dense MLP and the routed mixture of experts,
+SwiGLU (gate ⊙ up) or one activation of ``common.activation_fn``.
 
 The counterpart of ``repro.models.moe``.  ``moe_ffn`` is ``repro``'s
 top-k routing with a capacity-bucketed dispatch: assignments are sorted by
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 
-from .common import dense
+from .common import activation_fn, dense
 
 
 class ExpertParams(NamedTuple):
@@ -44,12 +45,6 @@ class MoEParams(NamedTuple):
     shared: Optional[tuple] = None  # (w_gate, w_up, w_down) of the shared experts
 
 
-def _swiglu_only(activation: str) -> None:
-    if activation != "swiglu":
-        raise NotImplementedError(
-            f"activation {activation!r}: only swiglu is ported (ROADMAP §1 item 8)")
-
-
 def top_k_lower_index(x, k: int):
     """(values, indices) of the k largest entries along the last axis, in
     descending order, ties to the lower index (``jax.lax.top_k``'s order)."""
@@ -59,8 +54,10 @@ def top_k_lower_index(x, k: int):
 
 def _expert_ffn(tokens, w_gate, w_up, w_down, activation: str):
     """tokens (E, C, d) → (E, C, d) via per-expert matmuls."""
-    _swiglu_only(activation)
-    h = F.silu(torch.bmm(tokens, w_gate)) * torch.bmm(tokens, w_up)
+    if activation == "swiglu":
+        h = F.silu(torch.bmm(tokens, w_gate)) * torch.bmm(tokens, w_up)
+    else:
+        h = activation_fn(activation)(torch.bmm(tokens, w_up))
     return torch.bmm(h, w_down)
 
 
@@ -131,13 +128,18 @@ def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
 
 
 def _shared_ffn(shared, xt, activation: str):
-    _swiglu_only(activation)
     w_gate, w_up, w_down = shared
-    return (F.silu(xt @ w_gate) * (xt @ w_up)) @ w_down
+    if activation == "swiglu":
+        h = F.silu(xt @ w_gate) * (xt @ w_up)
+    else:
+        h = activation_fn(activation)(xt @ w_up)
+    return h @ w_down
 
 
 def dense_ffn(params: dict, x, activation: str):
     """Plain MLP; ``params`` has w_up/w_down and (for swiglu) w_gate."""
-    _swiglu_only(activation)
-    h = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
+    if activation == "swiglu":
+        h = F.silu(dense(x, params["w_gate"])) * dense(x, params["w_up"])
+    else:
+        h = activation_fn(activation)(dense(x, params["w_up"]))
     return dense(h, params["w_down"])

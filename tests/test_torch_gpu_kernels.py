@@ -74,7 +74,7 @@ def _randn(shape, dtype, device, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 2, 8), (64, 4, 1)])
+@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 2, 8), (64, 4, 1), (192, 2, 12)])
 @pytest.mark.parametrize("t_real", [32, 200, 256])
 def test_extend_kernel_matches_plain(hopper, dtype, hd, kv, g, t_real):
     b, nb, cap = 2, 32, 256
@@ -182,7 +182,48 @@ def test_extend_kernel_mla_form_bit_invariant_to_capacity(hopper, dtype, nope, r
     assert torch.equal(small_out, big_out)
 
 
-@pytest.mark.parametrize("hqk,hv", [(24, 24), (192, 192), (128, 192), (24, 32), (48, 16)])
+# -- nemotron-4-340b's form: hd 192, G 12 --------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb,t_real", [(1, 1), (1, 300), (100, 100), (100, 511),
+                                       (128, 128), (128, 400)])
+def test_extend_kernel_hd192_rows_straddle_heads(hopper, dtype, nb, t_real):
+    """(q·k 192, v 192) at G 12: nb 100 gives G·nb = 1200 rows, so row blocks
+    straddle heads; one launch per call."""
+    b, kv, g, hd, cap = 1, 2, 12, 192, 512
+    q = _randn((b, nb, kv * g, hd), dtype, hopper, 80)
+    k = _randn((b, cap, kv, hd), dtype, hopper, 81)
+    v = _randn((b, cap, kv, hd), dtype, hopper, 82)
+    before = extend_kernel.KERNEL.launches
+    out = extend_ops.extend_attention(q, k, v, t_real=t_real)
+    torch.cuda.synchronize()
+    assert extend_kernel.KERNEL.launches == before + 1
+    want = extend_attention_ref(q.float(), k.float(), v.float(), t_real=t_real)
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want, rtol=rtol, atol=atol)
+    if dtype == torch.bfloat16:
+        _assert_within_one_ulp(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("small,big,nb,t_real", [
+    (256, 1024, 128, 256), (200, 640, 100, 163), (130, 2176, 1, 97)])
+def test_extend_kernel_hd192_bit_invariant_to_capacity(hopper, dtype, small, big, nb,
+                                                       t_real):
+    b, kv, g, hd = 1, 2, 12, 192
+    q = _randn((b, nb, kv * g, hd), dtype, hopper, 83)
+    k = _randn((b, small, kv, hd), dtype, hopper, 84)
+    v = _randn((b, small, kv, hd), dtype, hopper, 85)
+    kb = _randn((b, big, kv, hd), dtype, hopper, 86) * 100
+    vb = _randn((b, big, kv, hd), dtype, hopper, 87) * 100
+    kb[:, :small], vb[:, :small] = k, v
+    small_out = extend_ops.extend_attention(q, k, v, t_real=t_real)
+    big_out = extend_ops.extend_attention(q, kb, vb, t_real=t_real)
+    torch.cuda.synchronize()
+    assert torch.equal(small_out, big_out)
+
+
+@pytest.mark.parametrize("hqk,hv", [(24, 24), (256, 256), (128, 192), (24, 32), (48, 16)])
 def test_extend_kernel_raises_on_an_unbuilt_pair(hopper, hqk, hv):
     q = torch.zeros((1, 4, 4, hqk), device=hopper, dtype=torch.bfloat16)
     k = torch.zeros((1, 64, 4, hqk), device=hopper, dtype=torch.bfloat16)
@@ -194,7 +235,7 @@ def test_extend_kernel_raises_on_an_unbuilt_pair(hopper, hqk, hv):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 8, 8), (32, 1, 16)])
+@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 8, 8), (32, 1, 16), (192, 2, 12)])
 def test_decode_kernel_matches_plain(hopper, dtype, hd, kv, g):
     b, t = 4, 600
     q = _randn((b, 1, kv * g, hd), dtype, hopper, 4)
@@ -249,7 +290,45 @@ def test_decode_kernel_row_independent_of_batch(hopper, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 8, 8), (64, 2, 5), (32, 1, 16)])
+@pytest.mark.parametrize("small,big,pos_list", [
+    (256, 2048, [0, 17, 128, 255]),
+    (2048, 8192, [0, 300, 1000, 2047]),
+])
+def test_decode_kernel_hd192_bit_invariant_to_capacity(hopper, dtype, small, big, pos_list):
+    """hd 192, G 12: every column chunk of the CUDA-core path (48 a row, more
+    than a warp's lanes) and both N tiles of the tensor-core path."""
+    b, kv, g, hd = 4, 2, 12, 192
+    q = _randn((b, 1, kv * g, hd), dtype, hopper, 90)
+    k = _randn((b, small, kv, hd), dtype, hopper, 91)
+    v = _randn((b, small, kv, hd), dtype, hopper, 92)
+    kb = _randn((b, big, kv, hd), dtype, hopper, 93) * 100
+    vb = _randn((b, big, kv, hd), dtype, hopper, 94) * 100
+    kb[:, :small], vb[:, :small] = k, v
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=hopper)
+    small_out = decode_ops.decode_attention(q, k, v, pos=pos)
+    big_out = decode_ops.decode_attention(q, kb, vb, pos=pos)
+    torch.cuda.synchronize()
+    assert torch.equal(small_out, big_out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_hd192_row_independent_of_batch(hopper, dtype):
+    b, kv, g, hd, t = 4, 8, 12, 192, 1100
+    q = _randn((b, 1, kv * g, hd), dtype, hopper, 95)
+    k = _randn((b, t, kv, hd), dtype, hopper, 96)
+    v = _randn((b, t, kv, hd), dtype, hopper, 97)
+    pos = torch.tensor([t - 1, 3, 128, 700], dtype=torch.int32, device=hopper)
+    batch = decode_ops.decode_attention(q, k, v, pos=pos)
+    for r in range(b):
+        alone = decode_ops.decode_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                            pos=pos[r:r + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(batch[r:r + 1], alone), f"row {r}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 8, 8), (64, 2, 5), (32, 1, 16),
+                                     (192, 8, 12)])
 def test_decode_kernel_matches_split_algorithm(hopper, dtype, hd, kv, g):
     """The kernel against the plain form of its own split/combine algorithm:
     fp32 at rtol 1e-5 (same splits, another order inside a split), bf16 at
