@@ -46,11 +46,19 @@ printed) and runs:
      as capacity-split ones, async prefill gives sync prefill's sampled
      streams and store (payloads bitwise), and a deferred build's dispatch
      makes no synchronising call (``torch.cuda.set_sync_debug_mode``);
+     then ``SessionManager`` over a 2-shard ``ShardedSegmentStore`` (int8
+     wire, ``scripts/sharded_smoke.py``'s traffic: four 160-token documents
+     two per shard, three rounds under a per-shard budget of half the
+     unbounded store's bytes, then a 1e6x straggler and two more rounds):
+     the card gives the CPU's streams, plans, segment ids and
+     ``shard_report()``, and the single-shard unbounded streams;
      then reduced ``deepseek-v2-236b`` (MLA + MoE) the same two ways as
      ``deepseek-67b``: fp32 with a plain store and an int8 tiered store
      (identical tokens, plans and stores, logits within
      ``REDUCED_FP32_LOGIT_ATOL``), and bf16 (logits within
-     ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps); then ``nemotron-4-340b``
+     ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps), and with ``moe_groups=2``
+     (two-row prefill and greedy decode: logits within
+     ``REDUCED_FP32_LOGIT_ATOL``, tokens equal); then ``nemotron-4-340b``
      (squared-ReLU) the same two ways, reduced (hd 16) and reduced-wide
      (24 / 2 heads at hd 192, so G 12 and hd 192 reach both kernels), and
      ``SessionManager`` over reduced-wide as for ``deepseek-67b``; then
@@ -96,6 +104,20 @@ printed) and runs:
      (document, prefix, 16), and where one parts the single run's top-2
      logit gap there must be within ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps
      of its largest logit.
+ 12. sharded serving at full width, on phase 4's model (run after phase 9,
+     before the model is freed): four sessions over four 1024-token
+     documents, two homed on each of two simulated shards, ``submit_many``
+     at prefix 1024, 8 greedy tokens, chunk 128: (a) a plain store, 2
+     rounds; (b) ``ShardedSegmentStore`` with the fp32 wire, 2 rounds
+     (round 2 fetches the remote documents' segments): streams, plans and
+     segment ids (document and range) bitwise (a)'s, coalescing held,
+     put-forwards = the remote-homed chunks written; (c) shard 1 slowed
+     1e6x, rounds 3 and 4: hedged, the rebuild wins, streams still (a)'s;
+     (d) the int8 wire twice: ``quant_kv`` launches = dequantized
+     segments, finite logits, the two runs bitwise equal, where a stream
+     parts from (a) printed (not gated); with each round's wall time, the
+     fetched bytes, the simulated transfer seconds, and one full-width
+     segment's encode and decode host time beside the cost model's price.
  10. the MLA main path at full width, after phase 4's model is freed:
      ``deepseek-v2-236b`` widths (MLA, 160 routed experts top-6 plus 2
      shared), bf16, depth cut from 60 to 4 layers (1 dense + 3 MoE, 13.3 B
@@ -143,8 +165,8 @@ line and ``{"ok": true, "device": {...}}``; the line before them lists
 every kernel with its launches (on its own main path: batched serving,
 phase 9, for the attention kernels, the MLA main path, phase 10, for
 extend's MLA form, phase 11 for the two attention kernels' hd-192 forms,
-the residency phase for the dequant kernel, analytics for the statistics
-kernels) and times.
+the residency phase and phase 12 for the dequant kernel, analytics for
+the statistics kernels) and times.
 """
 from __future__ import annotations
 
@@ -1476,6 +1498,145 @@ def deferred_build_waits_for_nothing(dev) -> None:
     check(warm[2].models_used and b.store._pins == {}, "deferred builds left pins")
 
 
+def balanced_docs(rng, vocab: int, doc_len: int, n_docs: int, n_shards: int) -> list:
+    """``n_docs`` random documents, ``n_docs / n_shards`` homed on each shard
+    of an ``n_shards`` ring (rejection-sampled by content key)."""
+    from repro_torch.serve.session import doc_key
+    from repro_torch.serve.shard_store import HashRing
+
+    ring = HashRing(n_shards)
+    quota = {s: n_docs // n_shards for s in range(n_shards)}
+    docs = []
+    while len(docs) < n_docs:
+        doc = rng.integers(0, vocab, doc_len).astype(np.int32)
+        home = ring.place(doc_key(doc))
+        if quota.get(home, 0) > 0:
+            quota[home] -= 1
+            docs.append(doc)
+    return docs
+
+
+def sharded_replay(mgr, docs, *, rounds: int, n_new: int, seed0: int = 0) -> tuple:
+    """``rounds`` rounds of one full-prefix greedy request per document,
+    admitted together through ``submit_many``; returns (streams, plans with
+    segment ids)."""
+    sids = [mgr.add_session(d) for d in docs]
+    streams, plans = [], []
+    for r in range(rounds):
+        for plan in mgr.submit_many([(sid, len(docs[i]), n_new, seed0 + r * 100 + i)
+                                     for i, sid in enumerate(sids)]):
+            plans.append([(s.rng.lo, s.rng.hi, s.model_id) for s in plan.steps])
+        toks = mgr.run()
+        streams.append(tuple(tuple(toks[sid]) for sid in sids))
+    return streams, plans
+
+
+def reduced_sharded_sessions(dev, cfg) -> None:
+    """``SessionManager`` over a 2-shard ``ShardedSegmentStore`` on a
+    reduced fp32 config, int8 wire (every fetched segment dequantized by
+    ``quant_kv`` on the card), ``scripts/sharded_smoke.py``'s traffic: four
+    160-token documents two per shard, chunk 32, three rounds under a
+    per-shard budget of half the unbounded store's bytes, then a 1e6x
+    straggler on shard 1 and two more rounds.  The card must give the
+    CPU's streams, plans, segment ids and ``shard_report()``, and the
+    single-shard unbounded streams."""
+    from repro_torch.core.cost import serve_cost_model
+    from repro_torch.kernels.quant_kv import kernel as qk
+    from repro_torch.models.common import tree_map_with_path
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.session import SessionManager
+    from repro_torch.serve.shard_store import ShardedSegmentStore
+
+    cpu_model = LM(cfg, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+    runs = {"cpu": (cpu_model, cpu_params),
+            "cuda": (LM(cfg, device=dev),
+                     tree_map_with_path(lambda _, x: x.to(dev), cpu_params))}
+    docs = balanced_docs(np.random.default_rng(11), cfg.vocab_size, 160, 4, 2)
+    kw = dict(chunk_tokens=32, decode_bucket=32, decode_materialize=False)
+    out = {}
+    for name, (m, p) in runs.items():
+        probe = SessionManager(m, p, **kw)
+        ref, _ = sharded_replay(probe, docs, rounds=3, n_new=2)
+        budget = max(int(probe.store.nbytes() * 0.5), 1)
+        store = ShardedSegmentStore(2, byte_budget=budget, cost_model=serve_cost_model(),
+                                    seq_bucket=32, wire_precision="int8", device=m.device)
+        mgr = SessionManager(m, p, store=store, **kw)
+        launches = qk.KERNEL.launches
+        got, plans = sharded_replay(mgr, docs, rounds=3, n_new=2)
+        store.hedge_deadline_s = 0.05
+        store.transport.slowdown[1] = 1e6
+        got2, plans2 = sharded_replay(mgr, docs, rounds=2, n_new=2, seed0=300)
+        ref2, _ = sharded_replay(probe, docs, rounds=2, n_new=2, seed0=300)
+        out[name] = dict(streams=(got, got2), single=(ref, ref2), plans=plans + plans2,
+                         segs=[sorted(s._segs) for s in store._shards()],
+                         report=store.shard_report(), dequants=mgr.builder.dequants,
+                         launches=qk.KERNEL.launches - launches,
+                         fetched=mgr.builder.fetched_segments)
+    c, h = out["cuda"], out["cpu"]
+    rep = c["report"]
+    print(f"  sharded sessions (2 shards, budget per shard, int8 wire): "
+          f"{rep['remote_fetches']} segments fetched ({rep['remote_fetch_wire_bytes']} B "
+          f"wire) over {rep['remote_transfers']} transfers, {rep['fetched_hits']} fetched "
+          f"hits, {rep['coalesce_violations']} coalesce violations; hedged "
+          f"{rep['hedged_fetches']} ({rep['hedge_rebuild_wins']} rebuild wins); "
+          f"{c['fetched']} reuse steps from fetches, {c['dequants']} dequants, quant_kv "
+          f"launches {c['launches']}")
+    same = {k: c[k] == h[k] for k in ("streams", "plans", "segs", "report")}
+    print(f"  card == CPU: {same}; streams == single-shard unbounded: "
+          f"{c['streams'] == c['single']}")
+    check(all(same.values()), f"reduced sharded sessions: card and CPU disagree: {same}")
+    check(c["streams"] == c["single"],
+          "reduced sharded sessions: the 2-shard streams differ from the single-shard ones")
+    check(rep["remote_fetches"] > 0 and rep["fetched_hits"] > 0
+          and rep["coalesce_violations"] == 0 and rep["max_transfers_per_shard_tick"] <= 1,
+          f"reduced sharded sessions: no coalesced cross-shard hits: {rep}")
+    check(rep["hedged_fetches"] > 0 and rep["hedge_rebuild_wins"] > 0,
+          f"reduced sharded sessions: the straggler was never hedged: {rep}")
+    check(c["launches"] == c["dequants"] > 0,
+          f"reduced sharded sessions: quant_kv launches {c['launches']} != dequants "
+          f"{c['dequants']}")
+
+
+def reduced_grouped_moe(dev, cfg) -> None:
+    """A reduced MoE config with ``moe_groups=2`` (each row's tokens routed
+    in two groups): a two-row prefill and four two-row greedy decode steps,
+    the card against the CPU; logits within ``REDUCED_FP32_LOGIT_ATOL``,
+    greedy tokens equal."""
+    from repro_torch.models.common import tree_map_with_path
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.kv_cache import pad_cache_to
+
+    cfg = dataclasses.replace(cfg, moe_groups=2)
+    cpu_model = LM(cfg, device="cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+    runs = {"cpu": (cpu_model, cpu_params),
+            "cuda": (LM(cfg, device=dev),
+                     tree_map_with_path(lambda _, x: x.to(dev), cpu_params))}
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+    logits, streams = {}, {}
+    with torch.no_grad():
+        for name, (m, p) in runs.items():
+            lg, caches = m.prefill(p, {"tokens": torch.from_numpy(toks).to(m.device)})
+            caches = pad_cache_to(caches, 64)
+            seen, stream = [lg.float().cpu()], []
+            nxt = torch.argmax(lg, -1)
+            for i in range(4):
+                stream.append(nxt.tolist())
+                pos = torch.full((2,), 40 + i, dtype=torch.int32, device=m.device)
+                lg, caches = m.decode_step(p, caches, nxt[:, None], pos)
+                lg = lg.reshape(2, -1)
+                seen.append(lg.float().cpu())
+                nxt = torch.argmax(lg, -1)
+            stream.append(nxt.tolist())
+            logits[name], streams[name] = torch.cat(seen), stream
+    d = float((logits["cuda"] - logits["cpu"]).abs().max())
+    print(f"  moe_groups=2, two rows: greedy tokens card {streams['cuda']} cpu "
+          f"{streams['cpu']}; logits max |d| {d:.3g} (limit {REDUCED_FP32_LOGIT_ATOL})")
+    check(streams["cuda"] == streams["cpu"], "grouped MoE: card and CPU tokens differ")
+    check(d <= REDUCED_FP32_LOGIT_ATOL, f"grouped MoE: card and CPU logits differ by {d}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
@@ -2197,6 +2358,205 @@ def sessions_phase(base, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: sharded serving at full width
+# ---------------------------------------------------------------------------
+
+#: phase 12's traffic: four sessions over four documents of this many
+#: tokens, two homed on each of two shards, one full-prefix request per
+#: session and round, these many greedy tokens each, chunk 128
+SHARD_DOC_LEN = 1024
+SHARD_NEW_TOKENS = 8
+
+
+def shard_codec_times(store, seg, dev, label: str) -> None:
+    """Host seconds of ``encode_segment`` (quantize on the card, copy to
+    the host, deflate) and ``decode_segment`` (inflate, copy to the card)
+    of one full-width segment, per wire precision, median of 5, beside
+    what the cost model prices the same fetch at and a rebuild."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve.shard_store import decode_segment, encode_segment
+
+    cm = store.cost
+    for precision in ("int8", "fp32"):
+        enc, dec = [], []
+        for _ in range(5):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            blob = encode_segment(store, seg, precision=precision)
+            enc.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            back = decode_segment(blob, device=dev)
+            torch.cuda.synchronize(dev)
+            dec.append(time.perf_counter() - t0)
+        check(all(x.device == dev for x in tree_leaves(back.caches)),
+              "a decoded segment did not land on the card")
+        priced = cm.fetch_s(len(blob)) + cm.dequantize_s(len(blob))
+        print(f"    {label}, {precision} wire: {seg.nbytes} B resident -> {len(blob)} B on the "
+              f"wire; encode {float(np.median(enc)):.4f} s, decode {float(np.median(dec)):.4f} s "
+              f"(host, median of 5); priced fetch_s + dequantize_s {priced:.4f} s; "
+              f"recompute_s({seg.valid}) {cm.recompute_s(seg.valid):.4f} s")
+
+
+def sharded_phase(base, dev) -> int:
+    """Sharded serving on phase 4's model: four sessions over four
+    1024-token documents, two homed on each of two shards, through
+    ``SessionManager`` and ``ShardedSegmentStore``.  (a) a plain store, 2
+    rounds; (b) fp32 wire, 2 rounds (round 2 fetches the remote documents'
+    segments): bitwise (a); (c) a 1e6x straggler on shard 1, rounds 3 and
+    4: hedged, rebuilt, bitwise (a); (d) int8 wire twice: ``quant_kv``
+    launches = dequants, bitwise repeatable.  Returns (d)'s ``quant_kv``
+    launches."""
+    from repro_torch.core.cost import serve_cost_model
+    from repro_torch.kernels.quant_kv import kernel as qk
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kv_cache import SegmentStore
+    from repro_torch.serve.session import SessionManager, doc_key
+    from repro_torch.serve.shard_store import HashRing, ShardedSegmentStore
+
+    model, params = base.model, base.params
+    cfg = model.cfg
+    docs = balanced_docs(np.random.default_rng(12), cfg.vocab_size, SHARD_DOC_LEN, 4, 2)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def sharded_store(wire):
+        return ShardedSegmentStore(2, cost_model=serve_cost_model(), seq_bucket=64,
+                                   wire_precision=wire, device=dev)
+
+    def serve(label, store, rounds, *, mgr=None, seed0=0):
+        mgr = mgr or SessionManager(model, params, chunk_tokens=128, max_batch=8,
+                                    decode_bucket=64, decode_materialize=False, store=store)
+        sids = [mgr.add_session(d) for d in docs]
+        streams, plans = [], []
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            for plan in mgr.submit_many([(sid, SHARD_DOC_LEN, SHARD_NEW_TOKENS, seed0 + r)
+                                         for sid in sids]):
+                plans.append([(s.rng.lo, s.rng.hi, s.model_id) for s in plan.steps])
+            toks = mgr.run()
+            torch.cuda.synchronize(dev)
+            streams.append(tuple(tuple(toks[sid]) for sid in sids))
+            st = mgr.store
+            extra = ""
+            if isinstance(st, ShardedSegmentStore):
+                extra = (f"; fetched {st.remote_fetches} segments so far "
+                         f"({st.fetched_wire_bytes / 1e6:.1f} MB wire, simulated transfers "
+                         f"{st.transport.sim_transfer_s:.4f} s), hedged {st.hedged_fetches} "
+                         f"({st.hedge_rebuild_wins} rebuild wins)")
+            print(f"    {label} round {r + 1}: {time.perf_counter() - t0:.3f} s wall; reused "
+                  f"{[sum(s[2] is not None for s in p) for p in plans[-4:]]} "
+                  f"segments per request{extra}")
+        return streams, plans, mgr
+
+    def content_id(sid):
+        # "kv:{doc}:{lo}-{hi}#{n}": n counts the puts of the store that
+        # made the segment, and each shard numbers its own puts
+        return None if sid is None else sid.rsplit("#", 1)[0]
+
+    def all_segments(store):
+        shards = store._shards() if isinstance(store, ShardedSegmentStore) else [store]
+        return sorted(content_id(sid) for st in shards for sid in st._segs)
+
+    def plan_ids(plans):
+        return [[(lo, hi, content_id(sid)) for lo, hi, sid in p] for p in plans]
+
+    qk.KERNEL.launches = 0
+    homes = [HashRing(2).place(doc_key(d)) for d in docs]
+    print(f"  {len(docs)} documents of {SHARD_DOC_LEN} tokens homed on shards {homes}; "
+          f"chunk 128, {SHARD_NEW_TOKENS} greedy tokens per request, submit_many per round")
+    print("  (a) plain one-shard store (lossless reference)")
+    store_a = SegmentStore(cost_model=serve_cost_model(), seq_bucket=64, device=dev)
+    a_streams, a_plans, _ = serve("(a)", store_a, 2)
+    seg = next(iter(store_a._segs.values()))
+    shard_codec_times(store_a, seg, dev, "one full-width segment")
+
+    print("  (b) 2 shards, fp32 wire (bf16 residents ship as stored)")
+    store_b = sharded_store("fp32")
+    b_streams, b_plans, mgr_b = serve("(b)", store_b, 2)
+    remote = [d for d, h in zip(docs, homes) if h != 0]
+    remote_puts = sum(store_b.remotes[0]._doc_stats.get(doc_key(d), [0, 0])[0]
+                      for d in remote)
+    rep_b = store_b.shard_report()
+    same_b = (b_streams == a_streams, plan_ids(b_plans) == plan_ids(a_plans),
+              all_segments(store_b) == all_segments(store_a))
+    print(f"    streams, plans, segment ids (document, range) == (a): {same_b}; remote fetches "
+          f"{rep_b['remote_fetches']}, fetched hits {rep_b['fetched_hits']}, builder reuse "
+          f"steps from fetches {mgr_b.builder.fetched_segments}, coalesce violations "
+          f"{rep_b['coalesce_violations']}, most transfers to a shard in a tick "
+          f"{rep_b['max_transfers_per_shard_tick']}, put-forwards {rep_b['put_forwards']} "
+          f"(remote-homed chunks written {remote_puts})")
+    check(all(same_b), f"phase 12 (b): the fp32-wire run is not (a)'s: {same_b}")
+    check(rep_b["remote_fetches"] > 0 and rep_b["fetched_hits"] > 0,
+          f"phase 12 (b): no cross-shard hit: {rep_b}")
+    check(rep_b["coalesce_violations"] == 0 and rep_b["max_transfers_per_shard_tick"] <= 1,
+          f"phase 12 (b): a tick broke the one-transfer-per-shard contract: {rep_b}")
+    check(rep_b["put_forwards"] == remote_puts > 0,
+          f"phase 12 (b): put-forwards {rep_b['put_forwards']} != remote-homed chunks "
+          f"written {remote_puts}")
+
+    print("  (c) after (b): shard 1 slowed 1e6x, rounds 3 and 4")
+    store_b.transport.slowdown[1] = 1e6
+    c_streams, _, _ = serve("(c)", store_b, 2, mgr=mgr_b, seed0=2)
+    rep_c = store_b.shard_report()
+    same_c = [s == a_streams[1] for s in c_streams]
+    print(f"    hedged {rep_c['hedged_fetches']} ({rep_c['hedge_rebuild_wins']} rebuild wins, "
+          f"{rep_c['hedge_fetch_wins']} fetch wins, {rep_c['cancelled_fetches']} fetches "
+          f"cancelled); rounds 3, 4 streams == (a)'s round 2: {same_c}; (a)'s rounds 1 and 2 "
+          f"equal: {a_streams[0] == a_streams[1]}")
+    check(rep_c["hedged_fetches"] > 0 and rep_c["hedge_rebuild_wins"] > 0,
+          f"phase 12 (c): the straggler was never hedged away: {rep_c}")
+    check(all(same_c), "phase 12 (c): a hedged rebuild changed a stream")
+    del mgr_b, store_b
+    torch.cuda.empty_cache()
+
+    print("  (d) 2 shards, int8 wire (the default), twice")
+    d_runs = []
+    for k in range(2):
+        finite = []
+
+        def decode_step(params, caches, toks, pos):
+            logits, caches = type(model).decode_step(model, params, caches, toks, pos)
+            finite.append(torch.isfinite(logits.float()).all())
+            return logits, caches
+
+        model.decode_step = decode_step
+        before = qk.KERNEL.launches
+        try:
+            store_d = sharded_store("int8")
+            d_streams, _, mgr_d = serve(f"(d) run {k + 1}", store_d, 2)
+        finally:
+            del model.decode_step
+        launches = qk.KERNEL.launches - before
+        dequants = mgr_d.builder.dequants
+        ok = bool(torch.stack(finite).all())
+        d_runs.append(d_streams)
+        print(f"    run {k + 1}: quant_kv launches {launches}, dequants {dequants}, fetched "
+              f"{store_d.remote_fetches} segments ({store_d.fetched_wire_bytes / 1e6:.1f} MB "
+              f"wire), logits finite: {ok}")
+        check(launches == dequants > 0,
+              f"phase 12 (d): quant_kv launches {launches} != dequantized segments {dequants}")
+        check(ok, "phase 12 (d): int8-wire logits not finite")
+        del mgr_d, store_d
+        torch.cuda.empty_cache()
+    check(d_runs[0] == d_runs[1], "phase 12 (d): two int8-wire runs differ")
+    for r in range(2):
+        for i, (got, want) in enumerate(zip(d_runs[0][r], a_streams[r])):
+            at = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
+            if at is None:
+                print(f"    (d) round {r + 1} document {i}: identical to (a)")
+                continue
+            eng = ServeEngine(model, params, docs[i], chunk_tokens=128, store=store_a,
+                              doc_id=doc_key(docs[i]), device=dev)
+            gap, top = top2_gap(single_logits(eng, SHARD_DOC_LEN, list(want), at))
+            print(f"    (d) round {r + 1} document {i}: parts from (a) at token {at}; "
+                  f"(a)'s top-2 gap there {gap:.4g} (largest logit {top:.4g}; not gated)")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  phase 12: two int8 runs bitwise equal: True; quant_kv launches "
+          f"{qk.KERNEL.launches}; peak memory {peak / 2**30:.2f} GiB; {nvidia_smi_line()}")
+    return qk.KERNEL.launches
+
+
+# ---------------------------------------------------------------------------
 # phases 7 and 8: the analytics engine
 # ---------------------------------------------------------------------------
 
@@ -2510,10 +2870,14 @@ def main() -> int:
     print("    reduced deepseek-67b (fp32): SessionManager, card vs CPU")
     reduced_sessions(dev, reduced(get_config("deepseek-67b")))
     deferred_build_waits_for_nothing(dev)
+    print("    reduced deepseek-67b (fp32): SessionManager over 2 shards, card vs CPU")
+    reduced_sharded_sessions(dev, reduced(get_config("deepseek-67b")))
     print("    reduced deepseek-v2-236b (MLA + MoE, fp32): card vs CPU")
     reduced_parity(dev, reduced(get_config("deepseek-v2-236b")))
     print("    reduced deepseek-v2-236b (bf16 params and compute): card vs CPU")
     reduced_bf16_parity(dev, reduced(get_config("deepseek-v2-236b")))
+    print("    reduced deepseek-v2-236b (fp32) with moe_groups=2: card vs CPU")
+    reduced_grouped_moe(dev, reduced(get_config("deepseek-v2-236b")))
     nemotron = get_config("nemotron-4-340b")
     for label, cfg in (("reduced", reduced(nemotron)), ("reduced-wide", reduced_wide(nemotron))):
         print(f"    {label} nemotron-4-340b (squared-ReLU, G {cfg.n_heads // cfg.n_kv_heads}, "
@@ -2536,6 +2900,9 @@ def main() -> int:
     print(f"[9] batched serving at full width ({FULL_LAYERS} layers, bf16 model, "
           f"phase 4's store)")
     counts.update(sessions_phase(eng, dev))
+    print(f"[12] sharded serving at full width ({FULL_LAYERS} layers, bf16 model, 2 "
+          f"simulated shards)")
+    counts["quant_kv"] += sharded_phase(eng, dev)
     del eng, ref
     torch.cuda.empty_cache()
     print(f"[10] MLA main path at full width (deepseek-v2-236b, {MLA_LAYERS} layers, bf16)")

@@ -10,9 +10,7 @@ a shared segment store.
 
 run on the CUDA device; ``--device cpu`` runs the same path on the CPU
 (the kernels' plain versions).  The flags are those of
-``python -m repro.launch.serve`` and the printed lines keep its wording;
-the sharding flags, whose feature the port does not have yet, raise
-``NotImplementedError`` naming the ROADMAP.md item.
+``python -m repro.launch.serve`` and the printed lines keep its wording.
 
 Residency: ``--store-dir`` reloads a snapshot at start (when one exists),
 re-snapshots every ``--snapshot-every`` requests on the background writer
@@ -26,31 +24,26 @@ the ``quant_kv`` kernel:
       --reduced --device cpu --doc-len 512 --requests 3 --byte-budget 200000 \
       --host-budget 200000 --spill-dir /tmp/kvspill --segment-precision int8 \
       --store-dir /tmp/kvstore
+
+Sharded serving: ``--shards N`` spreads the store over N consistent-hash
+shards (simulated in-process hosts on one device, each with its own tiers
+at the per-shard budgets).  Documents homed on a remote shard are fetched
+over a simulated wire (``--shard-bw`` / ``--shard-rtt``), one transfer per
+shard per scheduler tick, int8-quantized and deflated; fetches past
+``--hedge-deadline`` race a local rebuild (first done wins):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-67b \
+      --reduced --device cpu --doc-len 256 --sessions 4 --shared-docs 0 \
+      --requests 2 --new-tokens 4 --shards 2 --shard-rtt 1e-6
 """
 from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
-
-#: (flag, attribute, value meaning "off", ROADMAP.md §1 item) of features
-#: the port does not implement yet
-_NOT_PORTED = (
-    ("--shards", "shards", 1, "item 7 (sharding)"),
-    ("--shard-bw", "shard_bw", 2e9, "item 7 (sharding)"),
-    ("--shard-rtt", "shard_rtt", 1e-3, "item 7 (sharding)"),
-    ("--hedge-deadline", "hedge_deadline", None, "item 7 (sharding)"),
-)
-
-
-def check_ported(args) -> None:
-    for flag, attr, off, item in _NOT_PORTED:
-        if getattr(args, attr) != off:
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet: ROADMAP.md §1 {item}")
-
 
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
@@ -81,10 +74,25 @@ def _load_store(args, budget, tiers, device):
     or ``None`` when there is none yet.  Documents are content-keyed, so a
     snapshot of other documents yields no hits; a snapshot is valid only
     for the (arch, seed) it was taken under."""
-    from repro_torch.serve.kv_cache import SegmentStore
-
     if not args.store_dir:
         return None
+    if args.shards > 1:
+        from repro_torch.serve.shard_store import ShardedSegmentStore
+
+        if not any(Path(args.store_dir).glob("shard-*")):
+            return None   # no snapshot yet: this run populates it
+        store = ShardedSegmentStore.load(
+            args.store_dir, n_shards=args.shards, byte_budget=budget,
+            policy=args.eviction_policy,
+            bw_bytes_per_s=args.shard_bw, rtt_s=args.shard_rtt,
+            hedge_deadline_s=args.hedge_deadline, device=device, **tiers)
+        print(f"warm start: reloaded {store.total_segments()} segments "
+              f"({store.total_nbytes()/1e6:.1f} MB, "
+              f"{len(store.doc_ids())} documents, {store.n_shards} shards) "
+              f"from {args.store_dir}")
+        return store
+    from repro_torch.serve.kv_cache import SegmentStore
+
     try:
         store = SegmentStore.load(args.store_dir, byte_budget=budget,
                                   policy=args.eviction_policy, device=device,
@@ -107,6 +115,16 @@ def _make_store(args, budget, seq_bucket, device):
     store = _load_store(args, budget, tiers, device)
     if store is not None:
         return store
+    if args.shards > 1:
+        # shard count, wire calibration and hedging are store-creation
+        # parameters: a sharded store is always made here
+        from repro_torch.serve.shard_store import ShardedSegmentStore
+
+        return ShardedSegmentStore(
+            args.shards, byte_budget=budget, cost_model=serve_cost_model(),
+            policy=args.eviction_policy, seq_bucket=seq_bucket,
+            bw_bytes_per_s=args.shard_bw, rtt_s=args.shard_rtt,
+            hedge_deadline_s=args.hedge_deadline, device=device, **tiers)
     if not tiers:
         return None
     return SegmentStore(byte_budget=budget, cost_model=serve_cost_model(),
@@ -160,6 +178,34 @@ def _print_tier_report(store, args) -> None:
               f"errors {len(store.save_errors)}")
 
 
+def _print_shard_report(st) -> None:
+    """Per-shard occupancy and fetch-traffic lines (sharded stores only)."""
+    if not hasattr(st, "shard_summaries"):
+        return
+    rep = st.shard_report()
+    print(f"  fetch traffic ({rep['shards']} shards): "
+          f"{rep['remote_fetches']} segments fetched "
+          f"({rep['remote_fetch_wire_bytes']/1e6:.1f} MB wire) over "
+          f"{rep['remote_transfers']} transfers, "
+          f"{rep['fetched_hits']} fetched hits, "
+          f"{rep['on_demand_fetches']} on-demand, "
+          f"{rep['coalesce_violations']} coalesce violations")
+    print(f"  hedging: {rep['hedged_fetches']} hedged "
+          f"({rep['hedge_rebuild_wins']} rebuild wins, "
+          f"{rep['hedge_fetch_wins']} fetch wins, "
+          f"{rep['cancelled_fetches']} fetches cancelled), "
+          f"{rep['dead_shard_skips']} dead-shard skips, "
+          f"{rep['put_forwards']} put-forwards "
+          f"({rep['put_forward_bytes']/1e6:.1f} MB)")
+    for s in st.shard_summaries():
+        print(f"  shard {s['shard']}: {s['segments']} segments, "
+              f"device {s['device_bytes']/1e6:.1f} MB, "
+              f"host {s['host_bytes']/1e6:.1f} MB, "
+              f"disk {s['disk_bytes']/1e6:.1f} MB, "
+              f"{s['hits']} hits, {s['evictions']} evictions, "
+              f"{s['docs']} docs")
+
+
 def run_single(args, cfg, model, params, rng, device) -> None:
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.session import doc_key
@@ -187,6 +233,7 @@ def run_single(args, cfg, model, params, rng, device) -> None:
           f"decode {s.decode_s:.2f}s, store {len(eng.store)} segments "
           f"({eng.store.nbytes()/1e6:.1f} MB)")
     _print_tier_report(eng.store, args)
+    _print_shard_report(eng.store)
 
 
 def run_multi(args, cfg, model, params, rng, device) -> None:
@@ -218,12 +265,13 @@ def run_multi(args, cfg, model, params, rng, device) -> None:
     edit_reused = edit_rebuilt = 0
     t0 = time.perf_counter()
     for r in range(args.requests):
-        reqs = []
+        # one submit per request, as repro.launch.serve does: against a
+        # sharded store each remote document's prefetch is its own tick
         for i, sid in enumerate(sids):
             dl = len(mgr.sessions[sid].doc)
             L = int(rng.integers(max(dl // 4, 1), max(dl, 2)))
-            reqs.append((sid, L, args.new_tokens, r * 1000 + i))
-        for plan in mgr.submit_many(reqs, greedy=False):
+            plan = mgr.submit(sid, L, args.new_tokens, greedy=False,
+                              seed=r * 1000 + i)
             assert plan.validate_telescoping()
         mgr.run()
         if args.edit_every and (r + 1) % args.edit_every == 0:
@@ -284,6 +332,7 @@ def run_multi(args, cfg, model, params, rng, device) -> None:
               f"reused {edit_reused}/{tot} planned tokens "
               f"({edit_reused / tot if tot else 0.0:.1%})")
     _print_tier_report(st, args)
+    _print_shard_report(st)
     if args.store_dir and st.last_save:
         print(f"  snapshot: {st.last_save['written']} entries written, "
               f"{st.last_save['reused']} reused from the previous snapshot")
@@ -336,10 +385,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tier-policy", choices=["tiered", "evict"], default=None)
     ap.add_argument("--segment-precision", choices=["auto", "fp32", "int8"],
                     default=None)
-    ap.add_argument("--shards", type=int, default=1)
-    ap.add_argument("--shard-bw", type=float, default=2e9)
-    ap.add_argument("--shard-rtt", type=float, default=1e-3)
-    ap.add_argument("--hedge-deadline", type=float, default=None)
+    ap.add_argument("--shards", type=int, default=1,
+                    help=">1 spreads the store over N consistent-hash shards "
+                         "(simulated hosts); the budgets and --spill-dir "
+                         "apply per shard")
+    ap.add_argument("--shard-bw", type=float, default=2e9,
+                    help="simulated cross-shard wire bandwidth, bytes/s")
+    ap.add_argument("--shard-rtt", type=float, default=1e-3,
+                    help="simulated cross-shard round trip, s")
+    ap.add_argument("--hedge-deadline", type=float, default=None,
+                    help="estimated fetch seconds past which a fetch races "
+                         "a local rebuild (default REPRO_HEDGE_DEADLINE, "
+                         "then 0.05)")
     ap.add_argument("--background-saves", dest="background_saves",
                     action="store_true", default=True)
     ap.add_argument("--sync-saves", dest="background_saves",
@@ -350,7 +407,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.device)
 
     from repro_torch.configs import get_config, reduced

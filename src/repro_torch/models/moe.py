@@ -19,6 +19,9 @@ bitwise the same tokens:
 * the combine gathers each token's k weighted outputs to ``(n, k, d)`` and
   sums them in ascending expert order, the order of ``repro``'s scatter-add
   on the CPU, with no atomic ``index_add_``.
+
+With ``groups > 1`` each group of tokens is routed on its own, under the
+same rules (``repro``'s expert-parallel dispatch, as a loop over groups).
 """
 from __future__ import annotations
 
@@ -61,23 +64,28 @@ def _expert_ffn(tokens, w_gate, w_up, w_down, activation: str):
     return torch.bmm(h, w_down)
 
 
-def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
-            groups: int = 1):
-    """x (B, S, d) → ((B, S, d), router aux loss).
+class Route(NamedTuple):
+    """One group's routing, in stable expert order (assignment ``i`` of
+    the sorted order is token ``token_idx[i]``'s ``rank[i]``-th lowest
+    expert ``sorted_expert[i]``, in bucket slot ``slot[i]``; ``keep``
+    is false for the assignments past the expert's capacity)."""
+    sorted_expert: torch.Tensor   # (n·k,)
+    slot: torch.Tensor            # (n·k,)
+    keep: torch.Tensor            # (n·k,) bool
+    token_idx: torch.Tensor       # (n·k,)
+    rank: torch.Tensor            # (n·k,)
+    gates: torch.Tensor           # (n·k,) fp32 gate weights, sorted order
+    capacity: int
+    aux: torch.Tensor             # router load-balance loss, fp32 0-d
 
-    ``groups > 1`` is ``repro``'s expert-parallel dispatch, which belongs
-    to sharding and is not ported.
-    """
-    if groups > 1:
-        raise NotImplementedError(
-            f"moe_groups={groups}: the expert-parallel dispatch is sharding, "
-            "not ported yet (ROADMAP.md §1 item 7)")
-    b, s, d = x.shape
-    n = b * s
+
+def route(cfg: MoEConfig, router, xt) -> Route:
+    """Top-k routing of one group's tokens ``xt`` (n, d): ``repro``'s
+    ``_dispatch_group`` without the buffer, capacity
+    ``max(ceil(n·k·cf / E), 4)`` for the group's own n."""
+    n = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
-    xt = x.reshape(n, d)
-
-    logits = dense(xt.float(), p.router.float())                          # (n, E)
+    logits = dense(xt.float(), router.float())                            # (n, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = top_k_lower_index(probs, k)                    # (n, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -91,37 +99,67 @@ def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
     aux = e * torch.sum(me * ce)
 
     capacity = max(int(math.ceil(n * k * cfg.capacity_factor / e)), 4)
-
-    flat_gate = gate_vals.reshape(-1)
     # position of each assignment within its expert's bucket
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
-    slot = (torch.arange(n * k, device=x.device)
+    slot = (torch.arange(n * k, device=xt.device)
             - torch.searchsorted(sorted_expert, sorted_expert))
-    keep = slot < capacity
-    token_idx = order // k
+    rank = torch.argsort(torch.argsort(expert_ids, dim=-1), dim=-1).reshape(-1)
+    return Route(sorted_expert, slot, slot < capacity, order // k, rank[order],
+                 gate_vals.reshape(-1)[order], capacity, aux)
 
+
+def _routed_ffn(p: MoEParams, cfg: MoEConfig, xt, activation: str):
+    """One group's routed experts: ``xt`` (n, d) → ((n, d), aux)."""
+    n, d = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = route(cfg, p.router, xt)
+    capacity, keep = r.capacity, r.keep
     # dispatch: row e·capacity + slot of the flat buffer; dropped
     # assignments go to the spare last row
-    dest = torch.where(keep, sorted_expert * capacity + slot, e * capacity)
-    buf = x.new_zeros((e * capacity + 1, d))
-    buf[dest] = xt[token_idx]
+    dest = torch.where(keep, r.sorted_expert * capacity + r.slot, e * capacity)
+    buf = xt.new_zeros((e * capacity + 1, d))
+    buf[dest] = xt[r.token_idx]
     out_buf = _expert_ffn(buf[:-1].view(e, capacity, d), p.experts.w_gate,
                           p.experts.w_up, p.experts.w_down, activation)
 
     gathered = out_buf.reshape(e * capacity, d)[torch.where(keep, dest, 0)]
     gathered = torch.where(keep[:, None], gathered, 0.0)
-    weighted = (gathered * flat_gate[order][:, None]).to(x.dtype)
+    weighted = (gathered * r.gates[:, None]).to(xt.dtype)
     # combine without atomics: assignment (token t, its j-th lowest expert)
     # lands at row t·k + j, then the k rows sum in that order
-    rank = torch.argsort(torch.argsort(expert_ids, dim=-1), dim=-1).reshape(-1)
-    contrib = x.new_empty((n * k, d))
-    contrib[token_idx * k + rank[order]] = weighted
+    contrib = xt.new_empty((n * k, d))
+    contrib[r.token_idx * k + r.rank] = weighted
     contrib = contrib.view(n, k, d)
     out = contrib[:, 0]
     for j in range(1, k):
         out = out + contrib[:, j]
+    return out, r.aux
 
+
+def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
+            groups: int = 1):
+    """x (B, S, d) → ((B, S, d), router aux loss).
+
+    ``groups > 1`` is ``repro``'s expert-parallel dispatch: the B·S tokens
+    split into ``groups`` equal groups in order, each routed on its own
+    (its own capacity, drops and combine), and the aux loss is the mean
+    over groups.  ``repro`` shards the groups over a mesh; here they run
+    one after another on one device.
+    """
+    b, s, d = x.shape
+    n = b * s
+    if n % groups:
+        raise ValueError(f"{n} tokens do not split into {groups} MoE groups")
+    xt = x.reshape(n, d)
+    n_loc = n // groups
+    parts = [_routed_ffn(p, cfg, xt[g * n_loc:(g + 1) * n_loc], activation)
+             for g in range(groups)]
+    if groups == 1:
+        out, aux = parts[0]
+    else:
+        out = torch.cat([o for o, _ in parts])
+        aux = torch.stack([a for _, a in parts]).mean()
     if p.shared is not None:
         out = out + _shared_ffn(p.shared, xt, activation)
     return out.reshape(b, s, d), aux

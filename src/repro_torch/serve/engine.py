@@ -124,6 +124,9 @@ class PrefixCacheBuilder:
         #: segments dequantized on the reuse path (int8 residents whose
         #: payload was reconstructed before it entered the cache)
         self.dequants = 0
+        #: reuse steps served from a cross-shard fetch (0 off the sharded
+        #: store, which alone marks segments ``fetched``)
+        self.fetched_segments = 0
 
     def _segment_caches(self, seg):
         """A reuse segment's caches at model precision.
@@ -133,6 +136,8 @@ class PrefixCacheBuilder:
         casts the segment to the destination dtype, so raw int8 codes would
         enter as magnitudes.  The stored copy stays int8.
         """
+        if seg.fetched:
+            self.fetched_segments += 1
         if seg.precision != "int8" or seg.quant is None:
             return seg.caches
         from repro_torch.core.quant import dequantize_tree

@@ -195,6 +195,9 @@ class StoredSegment:
     #: CUDA event recorded after the device-to-host copies of a demotion;
     #: the host buffers are readable once it has completed
     host_event: Any = field(default=None, repr=False)
+    #: a transient copy fetched from another shard (the sharded store's
+    #: fetch cache), not a resident of any store
+    fetched: bool = False
 
     def __post_init__(self):
         if not self.valid:

@@ -218,8 +218,9 @@ class SchedulerStats:
                 if self.tickets_joined else 0.0)
 
 
-#: the sharded store's report keys at their single-shard values (the port
-#: has no sharded store; consumers of ``report()`` never branch on it)
+#: the sharded store's report keys at their single-shard values: a plain
+#: store reports these, so consumers of ``report()`` never branch on the
+#: store's type
 _SINGLE_SHARD = {
     "shards": 1,
     "remote_fetches": 0,
@@ -432,9 +433,17 @@ class SessionManager:
         """Admit one scheduler tick's worth of requests together.
 
         ``reqs`` is ``[(sid, prefix_len, n_new, seed), ...]``.  Against a
-        plain store this is the submit loop (a sharded store, not ported
-        yet, coalesces remote fetches here).
+        sharded store this is the cross-document coalescing point: every
+        document's remote segments are resolved in **one** transport tick
+        up front (at most one batched transfer per contacted shard), so
+        the per-request prefetch inside :meth:`submit` finds its payloads
+        already in the fetch cache.  Against a plain store it is the
+        submit loop.
         """
+        batch = getattr(self.store, "prefetch_batch", None)
+        if batch is not None:
+            batch([(self.sessions[sid].doc_id, prefix_len)
+                   for sid, prefix_len, _, _ in reqs])
         return [self.submit(sid, prefix_len, n_new, greedy=greedy, seed=seed)
                 for sid, prefix_len, n_new, seed in reqs]
 
@@ -803,8 +812,9 @@ class SessionManager:
             "quantized": st.quantized,
             "quant_bytes_saved": st.quant_bytes_saved,
             "dequants": self.builder.dequants,
-            "fetched_segments": 0,
-            **_SINGLE_SHARD,
+            "fetched_segments": self.builder.fetched_segments,
+            **(st.shard_report() if hasattr(st, "shard_report")
+               else _SINGLE_SHARD),
         }
 
 

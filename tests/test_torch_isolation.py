@@ -1,7 +1,8 @@
 """Import isolation of the PyTorch port: ``src/repro_torch/``,
 ``chip_smoke.py`` and ``decode_turns.py`` import neither JAX nor the JAX
 package, and the port's
-serving and analytics modules import with ``jax`` blocked."""
+serving (sharded store and distribution layer included) and analytics
+modules import with ``jax`` blocked."""
 import ast
 import os
 import subprocess
@@ -42,6 +43,8 @@ def test_port_imports_with_jax_blocked():
             "    sys.modules[m] = None\n"
             "import repro_torch.serve, repro_torch.serve.engine, repro_torch.serve.session\n"
             "import repro_torch.launch.serve, repro_torch.data.edits\n"
+            "import repro_torch.serve.shard_store, repro_torch.distributed.compression\n"
+            "import repro_torch.distributed.fault, repro_torch.distributed.transport\n"
             "import repro_torch.core.engine, repro_torch.data, repro_torch.launch.analytics\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")

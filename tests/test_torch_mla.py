@@ -270,3 +270,36 @@ def test_prefill_extend_many_decode_match_reference(models):
         assert ttok == jtok, i
         _leaves_close(tc, jc, p + 1)
     assert worst < LOGIT_ATOL, worst
+
+
+def test_grouped_moe_model_matches_reference(models):
+    """Reduced ``deepseek-v2-236b`` with ``moe_groups=2`` (the same
+    parameters: groups change the routing, not the layout): a two-row
+    prefill and four two-row greedy decode steps, every row's tokens split
+    into two routing groups; logits within ``LOGIT_ATOL`` of ``repro``'s and
+    the greedy tokens equal."""
+    cfg, _, tree, _, params = models
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config(ARCH)), moe_groups=2)
+    gcfg = dataclasses.replace(cfg, moe_groups=2)
+    jm, tm = JaxLM(jcfg), LM(gcfg, device="cpu")
+    rng = np.random.default_rng(5)
+    s, cap, n_dec = 40, 64, 4
+    toks = rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
+    jl, jc = jax.jit(jm.prefill)(tree, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        tl, tc = tm.prefill(params, {"tokens": torch.from_numpy(toks)})
+    worst = float(np.abs(tl.numpy() - np.asarray(jl)).max())
+    jc, tc = jax_kv.pad_cache_to(jc, cap), kv_cache.pad_cache_to(tc, cap)
+    jdec = jax.jit(jm.decode_step)
+    jtok = np.argmax(np.asarray(jl), -1)
+    ttok = torch.argmax(tl, -1)
+    assert ttok.tolist() == jtok.tolist()
+    for i in range(n_dec):
+        pos = np.full(2, s + i, np.int32)
+        jl, jc = jdec(tree, jc, jnp.asarray(jtok[:, None], jnp.int32), jnp.asarray(pos))
+        with torch.no_grad():
+            tl, tc = tm.decode_step(params, tc, ttok[:, None], torch.from_numpy(pos))
+        worst = max(worst, float(np.abs(tl.numpy() - np.asarray(jl)).max()))
+        jtok, ttok = np.argmax(np.asarray(jl), -1).reshape(-1), torch.argmax(tl, -1).reshape(-1)
+        assert ttok.tolist() == jtok.tolist(), i
+    assert worst < LOGIT_ATOL, worst

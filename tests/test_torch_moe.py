@@ -123,13 +123,61 @@ def test_top_k_ties_go_to_the_lower_index(k):
 
 
 def test_moe_ffn_is_bitwise_repeatable_and_refuses_groups():
+    """Two calls give bitwise the same output and aux, ungrouped and at 2
+    and 4 groups; groups that do not split the tokens evenly are refused."""
     rng = np.random.default_rng(9)
     cfg = dataclasses.replace(REDUCED, capacity_factor=1.25)
     w = _weights(rng, cfg, 0.5)
     p = _params(moe, lambda a: torch.from_numpy(np.asarray(a, np.float32)), w)
     x = torch.from_numpy(rng.standard_normal((2, 32, D)).astype(np.float32))
-    a, aux_a = moe.moe_ffn(p, cfg, x)
-    b, aux_b = moe.moe_ffn(p, cfg, x)
-    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        moe.moe_ffn(p, cfg, x, groups=2)
+    for groups in (1, 2, 4):
+        a, aux_a = moe.moe_ffn(p, cfg, x, groups=groups)
+        b, aux_b = moe.moe_ffn(p, cfg, x, groups=groups)
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b), groups
+    with pytest.raises(ValueError, match="groups"):
+        moe.moe_ffn(p, cfg, x, groups=3)
+
+
+#: grouped dispatch, XLA against torch: the output (measured on the CPU:
+#: below 1e-6) and the aux relative to its value, one fp32 ulp (an aux near
+#: 1.26 has an ulp of 1.19e-7, and the router logits already differ by a
+#: few 1e-6 between XLA's and torch's matmuls, so no absolute 1e-7 holds)
+GROUPED_ATOL = 1e-6
+GROUPED_AUX_RTOL = 1e-7
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("case", ["drops", "shared"])
+def test_grouped_moe_matches_reference(groups, case):
+    """``moe_ffn(groups=G)`` against ``repro``'s ``_moe_ffn_grouped``: each
+    group routed on its own (per-group capacity), with tokens dropped
+    (capacity factor 1.25, a skewed router) and with shared experts; the
+    output within ``GROUPED_ATOL``, the aux (mean over groups) within
+    ``GROUPED_AUX_RTOL`` of its value, and every group's sorted experts, slots, kept
+    slots and token order equal to ``repro``'s ``_dispatch_group``."""
+    rng = np.random.default_rng(100 + groups)
+    cfg = dataclasses.replace(REDUCED, capacity_factor=1.25)
+    if case == "shared":
+        cfg = dataclasses.replace(cfg, n_shared=2, d_ff_shared=64)
+    w = _weights(rng, cfg, 0.8)
+    x = rng.standard_normal((2, 64, D))
+    jp = _params(jax_moe, lambda a: jnp.asarray(a, jnp.float32), w)
+    tp = _params(moe, lambda a: torch.from_numpy(np.asarray(a, np.float32)), w)
+    jout, jaux = jax_moe.moe_ffn(jp, cfg, jnp.asarray(x, jnp.float32), groups=groups)
+    tout, taux = moe.moe_ffn(tp, cfg, torch.from_numpy(np.asarray(x, np.float32)),
+                             groups=groups)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=0, atol=GROUPED_ATOL)
+    assert abs(float(taux) - float(jaux)) <= GROUPED_AUX_RTOL * abs(float(jaux)), \
+        (float(taux), float(jaux))
+    xt = np.asarray(x, np.float32).reshape(groups, -1, D)
+    dropped = 0
+    for g in range(groups):
+        _, se, slot, keep, tix, _, _ = jax_moe._dispatch_group(
+            cfg, jp.router, jnp.asarray(xt[g]))
+        r = moe.route(cfg, tp.router, torch.from_numpy(xt[g]))
+        assert r.sorted_expert.tolist() == np.asarray(se).tolist()
+        assert r.slot.tolist() == np.asarray(slot).tolist()
+        assert r.keep.tolist() == np.asarray(keep).tolist()
+        assert r.token_idx.tolist() == np.asarray(tix).tolist()
+        dropped += int((~r.keep).sum())
+    assert dropped > 0                                   # something dropped

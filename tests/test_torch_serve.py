@@ -160,12 +160,39 @@ def test_cli_single_session_on_cpu(capsys):
     assert "2 requests: reuse" in out
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"], ["--hedge-deadline", "1"]])
-def test_cli_unported_flags_name_the_roadmap(flag):
+@pytest.mark.parametrize("flag", [
+    ["--shards", "2", "--shard-rtt", "1e-6"],
+    ["--shards", "2", "--shard-bw", "1e9", "--hedge-deadline", "1e-6"],
+])
+def test_cli_unported_flags_name_the_roadmap(flag, capsys, monkeypatch):
+    """The sharding flags (named for when they were not ported, and
+    refused): ``--sessions 4`` over two shards, with ``--shard-rtt``, then
+    with ``--shard-bw`` and a hedge deadline every fetch passes, so every
+    remote document races a rebuild.  The port prints
+    ``python -m repro.launch.serve``'s lines with the same flags (all of
+    them under ``--sync-prefill``: the schedule is the script's), the
+    wall-clock values and the decode route aside.  No decode write-back:
+    the CLI samples, ``jax.random`` and ``torch.Generator`` draw different
+    tokens, and a continuation's content key (so its home shard) follows
+    its tokens."""
+    from repro.launch import serve as jax_cli
     from repro_torch.launch import serve as cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--arch", "deepseek-67b", "--reduced", "--device", "cpu", *flag])
+    common = ["--arch", "deepseek-67b", "--reduced", "--doc-len", "256",
+              "--sessions", "4", "--shared-docs", "2", "--requests", "2",
+              "--new-tokens", "3", "--chunk-tokens", "64", "--sync-prefill",
+              "--no-decode-materialize", *flag]
+    cli.main(["--device", "cpu", *common])
+    port = _multi_report(capsys.readouterr().out)
+    monkeypatch.setattr("sys.argv", ["serve", *common])
+    jax_cli.main()
+    ref = _multi_report(capsys.readouterr().out)
+    assert port == ref
+    traffic = [line for line in port if line.startswith("  fetch traffic (2 shards): ")]
+    assert traffic and "0 coalesce violations" in traffic[0]
+    assert sum(line.startswith(("  shard 0:", "  shard 1:")) for line in port) == 2
+    if "--hedge-deadline" in flag:
+        assert any(re.match(r"  hedging: [1-9]", line) for line in port)
 
 
 #: wall-clock values in the multi-session report, and what differs by
