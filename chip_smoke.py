@@ -24,12 +24,14 @@ printed) and runs:
      needs; extend's nemotron form (q·k = v = 192 at G 12, B1 KV8,
      capacity 4160, nb 128 / 1 / 100 by t_real 128 / 2049 / 4096) with the
      same tolerances, bitwise invariant to capacity (2176 vs 4160) and
-     timed at nb 128, t_real 4096; the decode
+     timed at nb 128, t_real 4096; extend's jamba form (hd 128 at G 4, B1
+     KV8, capacity 4096, the same nine (nb, t_real) pairs) likewise; the decode
      kernel also against the plain form of its split-KV algorithm, bitwise
      invariant to padded capacity within one split and across several
      (caps 2048 vs 8192), and bitwise the same for a row alone and in a
-     batch, at hd 128 (G 8) and at hd 192 (G 12, B1 at position 3072 and
-     B4); the int8 dequant kernel bitwise against its plain
+     batch, at hd 128 (G 8), at hd 192 (G 12, B1 at position 3072 and
+     B4) and at hd 128 (G 4, jamba's form, the same shapes); the int8
+     dequant kernel bitwise against its plain
      version; each kernel's time (CUDA events, L2 flushed between
      launches) beside its bound, the plain version's time and one PyTorch
      library call's time (a yardstick the port never calls), the attention
@@ -63,9 +65,13 @@ printed) and runs:
      (24 / 2 heads at hd 192, so G 12 and hd 192 reach both kernels), and
      ``SessionManager`` over reduced-wide as for ``deepseek-67b``; then
      reduced ``phi3-medium-14b``, ``qwen3-32b``, ``mixtral-8x7b`` and
-     ``kimi-k2-1t-a32b`` in fp32 with both stores; the card must launch
-     the extend kernel, and the decode kernel where the stack has
-     attention layers;
+     ``kimi-k2-1t-a32b`` in fp32 with both stores; then reduced
+     ``mamba2-130m`` (SSD only: no attention kernel may launch, and an int8
+     store quantizes nothing, the SSD state staying lossless) and
+     ``jamba-v0.1-52b`` (SSD + GQA + MoE) the same two ways and in bf16,
+     and ``SessionManager`` over reduced ``jamba-v0.1-52b`` as for
+     ``deepseek-67b``; the card must launch the extend kernel, and the
+     decode kernel where the stack has attention layers;
   4. the main path at full width: ``deepseek-67b`` widths, bf16, depth cut
      from 95 to 24 layers so the weights fit one 80 GB card, a 4096-token
      document, chunk 128, requests with prefixes 2048, 4096, 3072 (16 new
@@ -136,6 +142,22 @@ printed) and runs:
      extend calls and the decode kernel's 4 x the decode calls, the logits
      must be finite; then phase 5's profile of decode steps and a
      128-token extend.
+ 13. SSD serving at full width, after phase 11's model is freed: (a)
+     ``mamba2-130m`` at its published widths and full depth (24 SSD layers,
+     d 768, 24 heads of 64, d_state 128, fp32 parameters, bf16 compute),
+     phase 4's document and requests, a stored segment's load priced as a
+     device copy at the HBM rate: no attention kernel may launch, the
+     replay must give identical tokens, a cold engine's request for prefix
+     3072 must give the warm request's greedy tokens, and every stored
+     segment must hold the state's bytes (24 x (3 x 1792 + 24 x 64 x 128) x
+     4 B) whatever its length; (b) ``jamba-v0.1-52b`` at its published
+     widths, depth cut from 32 to one 8-layer period (13.27 B parameters),
+     bf16, phase 4's document and requests: the extend and decode kernels'
+     launches must equal 1 x their calls (one attention layer, G 4, hd
+     128), the replay identical, the logits finite; then phase 5's profile
+     of a decode step and a 128-token extend, split into the attention
+     kernel, the SSD mixers, the MoE and dense feed-forward layers (each
+     timed alone) and the rest.
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -165,8 +187,8 @@ line and ``{"ok": true, "device": {...}}``; the line before them lists
 every kernel with its launches (on its own main path: batched serving,
 phase 9, for the attention kernels, the MLA main path, phase 10, for
 extend's MLA form, phase 11 for the two attention kernels' hd-192 forms,
-the residency phase and phase 12 for the dequant kernel, analytics for
-the statistics kernels) and times.
+phase 13 (b) for their G-4 forms, the residency phase and phase 12 for the
+dequant kernel, analytics for the statistics kernels) and times.
 """
 from __future__ import annotations
 
@@ -195,6 +217,10 @@ MLA_LAYERS = 4
 #: phase 11's depth: nemotron-4-340b cut from 96 layers to 4 (23.26 B
 #: parameters, 43.3 GiB in bf16, embedding and untied head included)
 NEMOTRON_LAYERS = 4
+#: phase 13 (b)'s depth: jamba-v0.1-52b cut from 32 layers to one 8-layer
+#: period, which holds every layer kind (SSD at 0-3 and 5-7, GQA at 4, MoE
+#: on every second layer): 13.27 B parameters, 26.5 GB in bf16
+JAMBA_LAYERS = 8
 #: the configs whose layers the port already ran before nemotron (GQA at hd
 #: 128, qk-norm, MoE on every layer, a first dense layer and a shared
 #: expert): phase 3 holds each reduced one on the card against the CPU
@@ -303,9 +329,9 @@ def randn(shape, dtype, device, seed):
 #: the kernel's 64-row blocks (a block straddles two heads)
 EXTEND_SHAPES = ((128, 128), (128, 2049), (128, 4096), (1, 1), (1, 3000),
                  (100, 100), (100, 4096))
-#: and at nemotron's G 12, hd 192 (phase 11's form): every pair of nb 128, 1,
-#: 100 and t_real 128, 2049, 4096
-EXTEND_SHAPES_192 = tuple((n, t) for n in (128, 1, 100) for t in (128, 2049, 4096))
+#: every pair of nb 128, 1, 100 and t_real 128, 2049, 4096: at nemotron's
+#: G 12, hd 192 (phase 11's form) and at jamba's G 4, hd 128 (phase 13's)
+EXTEND_SHAPES_GRID = tuple((n, t) for n in (128, 1, 100) for t in (128, 2049, 4096))
 
 
 def extend_phase(dev, timer, *, g: int = 8, hd: int = 128, cap: int = 4096,
@@ -1233,6 +1259,8 @@ def reduced_parity(dev, cfg) -> None:
     cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
     gpu_model = LM(cfg, device=dev)
     gpu_params = tree_map_with_path(lambda _, x: x.to(dev), cpu_params)
+    kinds = [spec.mixer for period, _ in cpu_model.segments for spec in period]
+    attention = any(k in ("attn", "mla") for k in kinds)
     doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 256).astype(np.int32)
     with torch.no_grad():
         _, caches = cpu_model.prefill(cpu_params, {"tokens": torch.from_numpy(doc[None, :64])})
@@ -1269,9 +1297,14 @@ def reduced_parity(dev, cfg) -> None:
                        cfg.mla.v_head_dim) if cfg.mla else (cfg.head_dim, cfg.head_dim))
             print(f"  {label}: extend kernel launches on the card at (q·k, v) widths "
                   f"{widths}: {launches}; decode kernel launches: {decodes}")
-            check(launches > 0, f"reduced model ({label}): the card ran no extend kernel")
-            check(cfg.mla is not None or decodes > 0,
-                  f"reduced model ({label}): the card ran no decode kernel")
+            if attention:
+                check(launches > 0, f"reduced model ({label}): the card ran no extend kernel")
+                check(cfg.mla is not None or decodes > 0,
+                      f"reduced model ({label}): the card ran no decode kernel")
+            else:
+                check(launches == decodes == 0,
+                      f"reduced model ({label}) has no attention layer, yet the card "
+                      f"launched attention kernels: extend {launches}, decode {decodes}")
             st = {}
             for name, eng in engines.items():
                 eng.store.flush_saves()
@@ -1286,7 +1319,9 @@ def reduced_parity(dev, cfg) -> None:
             check(st["cuda"] == st["cpu"],
                   f"reduced model ({label}): store state differs: {st}")
             if store_kw is not None:
-                check(st["cuda"][1] > 0 and min(st["cuda"][3].values()) > 0
+                # a stack without sequence leaves (SSD only) stores state,
+                # which int8 never quantizes: nothing to dequantize
+                check((st["cuda"][1] > 0) == attention and min(st["cuda"][3].values()) > 0
                       and min(st["cuda"][4].values()) > 0,
                       f"reduced int8 tiered run skipped a tier or the dequant: {st['cuda']}")
             logits = {name: torch.cat([
@@ -1300,8 +1335,8 @@ def reduced_parity(dev, cfg) -> None:
                   f"reduced model ({label}): card and CPU logits differ by {d}")
     finally:
         shutil.rmtree(spill, ignore_errors=True)
-    print(f"  reduced {cfg.name} (G {cfg.n_heads // cfg.n_kv_heads}, hd {cfg.head_dim}) "
-          f"cuda-vs-cpu: identical plans, tokens and stores: True")
+    print(f"  reduced {cfg.name} (mixers {kinds}, hd {cfg.head_dim}) cuda-vs-cpu: "
+          f"identical plans, tokens and stores: True")
 
 
 #: phase 3's bf16 run: the card's logits within this many bf16 ulps of the
@@ -1770,14 +1805,16 @@ def where_time_goes(eng, dev) -> None:
 # phase 10: the MLA main path at full width
 # ---------------------------------------------------------------------------
 
-def serve_full_width(cfg, dev) -> tuple:
+def serve_full_width(cfg, dev, cost_model=None) -> tuple:
     """``cfg`` at its published widths (depth already cut), bf16, through
-    ``ServeEngine``: phase 4's document and requests (prefixes 2048, 4096,
-    3072 and a replay of 2048, 16 new tokens each), with the extend and
+    ``ServeEngine`` (its planner priced by ``cost_model``, by default the
+    serving calibration): phase 4's document and requests (prefixes 2048,
+    4096, 3072 and a replay of 2048, 16 new tokens each), with the extend and
     decode kernels' launches and the model's extend and decode calls
     counted.  Requests 2 and 3 must reuse stored segments, the replay must
     give identical tokens and the logits must be finite.  Returns (engine,
-    counts, attention layers)."""
+    counts, attention layers, {prefix: tokens} of the first three
+    requests)."""
     from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.extend_attention import kernel as ek
     from repro_torch.models.common import tree_leaves
@@ -1794,9 +1831,11 @@ def serve_full_width(cfg, dev) -> tuple:
              for spec in period]
     print(f"  init: {n_params / 1e9:.2f} B params on the card in "
           f"{time.perf_counter() - t0:.1f} s; layers {kinds}")
-    layers = sum(n for period, n in model.segments for _ in period)
+    layers = sum(n for period, n in model.segments for spec in period
+                 if spec.mixer in ("attn", "mla"))
     doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 4096).astype(np.int32)
-    eng = ServeEngine(model, params, doc, chunk_tokens=128, device=dev)
+    eng = ServeEngine(model, params, doc, chunk_tokens=128, device=dev,
+                      cost_model=cost_model)
     calls = {"extend": 0, "decode": 0}
 
     def counted(name, fn):                  # prefill_extend_many extends per chunk
@@ -1839,7 +1878,7 @@ def serve_full_width(cfg, dev) -> tuple:
     print("  replay of prefix 2048 from the store: identical tokens: True")
     print(f"  store: {len(eng.store)} segments, {eng.store.nbytes() / 2**20:.1f} MiB; "
           f"max memory allocated {mem / 2**30:.2f} GiB")
-    return eng, counts, layers
+    return eng, counts, layers, {r[0]: r[1] for r in results[:3]}
 
 
 def mla_main_path(dev) -> dict:
@@ -1857,7 +1896,7 @@ def mla_main_path(dev) -> dict:
           f"{moe.top_k} d_ff {moe.d_ff_expert} + {moe.n_shared} shared, dense d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}; n_layers cut "
           f"{base.n_layers} -> {cfg.n_layers} to fit one 80 GB card")
-    eng, counts, layers = serve_full_width(cfg, dev)
+    eng, counts, layers, _ = serve_full_width(cfg, dev)
     launches, calls = counts["extend"], counts["extend_calls"]
     print(f"  extend launches {launches} = {layers} MLA layers x {calls} "
           f"extend calls: {launches == layers * calls}")
@@ -1884,7 +1923,7 @@ def nemotron_main_path(dev) -> dict:
           f"{cfg.head_dim}, d_ff {cfg.d_ff} {cfg.activation}, vocab {cfg.vocab_size} "
           f"(untied head), {cfg.param_dtype}; n_layers cut {base.n_layers} -> "
           f"{cfg.n_layers} to fit one 80 GB card")
-    eng, counts, layers = serve_full_width(cfg, dev)
+    eng, counts, layers, _ = serve_full_width(cfg, dev)
     for name in ("extend", "decode"):
         launches, calls = counts[name], counts[f"{name}_calls"]
         print(f"  {name} launches {launches} = {layers} layers x {calls} {name} calls: "
@@ -1940,6 +1979,181 @@ def mla_where_time_goes(eng, dev) -> None:
               f"{moe_all:.2f} ms (one layer alone on {n} tokens: {moe_ms:.3f} ms, "
               f"{gemm_ms:.3f} ms of it in GEMM kernels, {kernels:g} device activities) "
               f"+ the rest {st['busy'] - st['ours'] - moe_all:.2f} ms")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: SSD serving at full width
+# ---------------------------------------------------------------------------
+
+def ssd_state_bytes(cfg) -> int:
+    """One stored segment of an SSD stack, whatever its length: each SSD
+    layer's conv state (W-1, conv channels) and ssm state (h, p, n), in the
+    dtype the mixer runs in (fp32 parameters promote bf16 compute)."""
+    from repro_torch.models.lm import DTYPES
+
+    s, d = cfg.ssm, cfg.d_model
+    per_layer = ((s.conv_width - 1) * (s.d_inner(d) + 2 * s.n_groups * s.d_state)
+                 + s.n_heads(d) * s.head_dim * s.d_state)
+    dtype = torch.promote_types(DTYPES[cfg.param_dtype], DTYPES[cfg.compute_dtype])
+    return cfg.n_layers * per_layer * torch.finfo(dtype).bits // 8
+
+
+def mamba_main_path(dev) -> None:
+    """``mamba2-130m`` at its published widths and full depth (24 SSD layers,
+    fp32 parameters, bf16 compute) through ``ServeEngine``
+    (:func:`serve_full_width`, phase 4's traffic).  No attention kernel may
+    launch; a cold engine's request for prefix 3072 must give the warm
+    engine's greedy tokens; every stored segment holds the state at its end,
+    the same bytes whatever its length.
+
+    The planner prices a stored segment's load as a device copy (each byte
+    read and written once at the HBM rate): the segments are device
+    residents.  The serving calibration's 1e-9 s a byte (a host scan)
+    prices a 19.4 MB state segment above the prefill of its 128 tokens, so
+    nothing would be reused."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost import serve_cost_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("mamba2-130m")
+    s, d = cfg.ssm, cfg.d_model
+    print(f"  config {cfg.name}: d_model {d}, d_inner {s.d_inner(d)}, {s.n_heads(d)} heads "
+          f"of {s.head_dim}, d_state {s.d_state}, conv {s.conv_width}, scan chunk "
+          f"{s.chunk}, no MLP, vocab {cfg.vocab_size} (tied), params {cfg.param_dtype}, "
+          f"compute {cfg.compute_dtype}; {cfg.n_layers} layers (full depth)")
+    want = ssd_state_bytes(cfg)
+    cost = serve_cost_model(load_s_per_byte=2 / HBM_BYTES_PER_S)
+    default = serve_cost_model()
+    print(f"  a 128-token segment ({want} B): prefill priced {default.F(128) * 1e3:.2f} ms; "
+          f"its load priced {default.C(want) * 1e3:.2f} ms by the serving calibration, "
+          f"{cost.C(want) * 1e3:.4f} ms as a device copy (this phase's planner)")
+    eng, counts, layers, warm = serve_full_width(cfg, dev, cost_model=cost)
+    print(f"  attention layers {layers}; attention kernel launches: extend "
+          f"{counts['extend']}, decode {counts['decode']} ({counts['extend_calls']} extend "
+          f"calls, {counts['decode_calls']} decode calls)")
+    check(layers == 0 and counts["extend"] == counts["decode"] == 0
+          and counts["extend_calls"] > 0 and counts["decode_calls"] > 0,
+          f"mamba2-130m launched an attention kernel or never ran: {counts}")
+    sizes = sorted({seg.nbytes for seg in eng.store._segs.values()})
+    print(f"  stored segment bytes {sizes} over {len(eng.store)} segments of 1 to 128 "
+          f"tokens (expected {want}: {cfg.n_layers} layers x (conv + ssm state))")
+    check(sizes == [want], f"mamba2-130m segment sizes {sizes} != {want}")
+    # warm (the store of phase 4's requests) against a cold engine
+    doc = eng.doc
+    bounds = lambda plan: [st.rng.hi for st in plan.steps]  # noqa: E731
+    cold = ServeEngine(eng.model, eng.params, doc, chunk_tokens=128, device=dev,
+                       cost_model=cost)
+    cold_plan = cold.plan_prefix(3071)
+    toks, _ = cold.generate(3072, 16)
+    warm_plan = eng.plan_prefix(3071)
+    fresh = ServeEngine(eng.model, eng.params, doc, chunk_tokens=128, device=dev,
+                        cost_model=cost)
+    lg = {name: e.builder.prefix_with_logits(doc, 3072, doc_id=e.doc_id, capacity=3088)[0]
+          for name, e in (("cold", fresh), ("warm", eng))}
+    dl = float((lg["warm"].float() - lg["cold"].float()).abs().max())
+    print(f"  prefix 3072: warm plan {len(warm_plan.models_used)} stored segments ending "
+          f"at {bounds(warm_plan)[-10:]}, cold plan ends {bounds(cold_plan)}; first logits "
+          f"warm vs cold max |d| {dl:.4g}")
+    print(f"  prefix 3072 tokens: warm {warm[3072]} cold {toks}: identical "
+          f"{toks == warm[3072]}")
+    check(toks == warm[3072], "mamba2-130m: a warm request for prefix 3072 gave other "
+                              "greedy tokens than a cold engine's")
+
+
+def jamba_main_path(dev) -> dict:
+    """``jamba-v0.1-52b`` at full width, depth cut to ``JAMBA_LAYERS`` (one
+    period), bf16, through ``ServeEngine`` (:func:`serve_full_width`): the
+    extend and decode kernels at G 4, hd 128, once per call (one attention
+    layer); then a decode step and a 128-token extend split into the SSD
+    mixers, the MoE and dense feed-forward layers and attention.  Returns
+    the two kernels' launches (the G 4 forms' main path)."""
+    from repro_torch.configs import get_config
+
+    base = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(base, n_layers=JAMBA_LAYERS)
+    s, d, moe = cfg.ssm, cfg.d_model, cfg.moe
+    print(f"  config {cfg.name}: d_model {d}, heads {cfg.n_heads}/{cfg.n_kv_heads} KV "
+          f"(G {cfg.n_heads // cfg.n_kv_heads}), head_dim {cfg.head_dim}; SSD d_inner "
+          f"{s.d_inner(d)}, {s.n_heads(d)} heads of {s.head_dim}, d_state {s.d_state}; "
+          f"d_ff {cfg.d_ff}, MoE {moe.n_experts} experts top-{moe.top_k} every "
+          f"{moe.every}; vocab {cfg.vocab_size}, {cfg.param_dtype}; n_layers cut "
+          f"{base.n_layers} -> {cfg.n_layers} (one period) to fit one 80 GB card")
+    eng, counts, layers, _ = serve_full_width(cfg, dev)
+    for name in ("extend", "decode"):
+        launches, calls = counts[name], counts[f"{name}_calls"]
+        print(f"  {name} launches {launches} = {layers} attention layer x {calls} {name} "
+              f"calls: {launches == layers * calls}")
+        check(layers == 1 and calls > 0 and launches == layers * calls,
+              f"jamba {name} launches {launches} != {layers} x {calls} {name} calls")
+    hybrid_where_time_goes(eng, dev)
+    return {"extend_attention_g4": counts["extend"],
+            "decode_attention_g4": counts["decode"]}
+
+
+def hybrid_where_time_goes(eng, dev) -> None:
+    """torch.profiler over one decode step at position 3072 and one 128-token
+    extend at 2048, as phase 5; then one layer of each kind alone on the same
+    number of tokens (an SSD mixer from its state, an MoE and a dense
+    feed-forward layer), so the step's device time splits into the
+    attention kernel, the SSD mixers, MoE, dense and the rest."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssd as ssd_mod
+    from repro_torch.models.lm import _layer_params, _moe_params, _ssd_params
+
+    model, params, doc, cfg = eng.model, eng.params, eng.doc, eng.model.cfg
+    logits, caches, _ = eng.builder.prefix_with_logits(
+        doc, 3072, doc_id=eng.doc_id, capacity=3088)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    pos = torch.tensor([3072], dtype=torch.int32, device=dev)
+    ext, _ = eng.builder.build_prefix(doc, 2048, doc_id=eng.doc_id,
+                                      materialize=False, capacity=2176)
+    chunk = torch.as_tensor(doc[None, 2048:2176].astype(np.int64), device=dev)
+    start = torch.tensor(2048, dtype=torch.int32, device=dev)
+    steps = {
+        "decode": profile_steps("jamba decode step", 4,
+                                lambda: model.decode_step(params, caches, tok, pos), dev),
+        "extend": profile_steps("jamba extend 128 tokens", 1,
+                                lambda: model.prefill_extend(params, ext, chunk, start), dev)}
+    (period, _), = model.segments
+    kinds = {"ssd": sum(sp.mixer == "ssd" for sp in period),
+             "moe": sum(sp.mlp == "moe" for sp in period),
+             "dense": sum(sp.mlp == "dense" for sp in period)}
+    slot = {k: next(j for j, sp in enumerate(period) if k in (sp.mixer, sp.mlp))
+            for k in kinds}
+    lp = {k: _layer_params(params["segments"][0][f"p{j}"], 0) for k, j in slot.items()}
+    state = tuple(caches[0][f"p{slot['ssd']}"][name][0].clone() for name in ("conv", "ssm"))
+    for name, n in (("decode", 1), ("extend", 128)):
+        h = randn((1, n, cfg.d_model), model.compute_dtype, dev, 5)
+        if n == 1:
+            mixer = lambda: ssd_mod.ssd_decode(  # noqa: E731
+                _ssd_params(lp["ssd"]["mixer"]), cfg.ssm, cfg.d_model, h, state,
+                norm_eps=cfg.norm_eps)
+        else:
+            mixer = lambda: ssd_mod.ssd_block(  # noqa: E731
+                _ssd_params(lp["ssd"]["mixer"]), cfg.ssm, cfg.d_model, h,
+                norm_eps=cfg.norm_eps, return_state=True, initial=state)
+        alone = {
+            "ssd": mixer,
+            "moe": lambda: moe_mod.moe_ffn(_moe_params(lp["moe"]["mlp"]), cfg.moe, h,  # noqa: E731
+                                           activation=cfg.activation),
+            "dense": lambda: moe_mod.dense_ffn(lp["dense"]["mlp"], h, cfg.activation)}  # noqa: E731
+        ms = {k: device_profile(fn, "", launches=5) for k, fn in alone.items()}
+        st = steps[name]
+        each = ", ".join(f"{k} {ms[k][0]:.3f} ms ({ms[k][1]:g} device activities)"
+                         for k in kinds)
+        if not st:
+            print(f"  jamba {name}: one layer alone on {n} tokens: {each}; step split "
+                  f"not measured")
+            continue
+        total = {k: ms[k][0] * kinds[k] for k in kinds}
+        rest = st["busy"] - st["ours"] - sum(total.values())
+        print(f"  jamba {name} step split: wall {st['wall']:.2f} ms = device busy "
+              f"{st['busy']:.2f} ms + host idle {max(st['wall'] - st['busy'], 0.0):.2f} ms; "
+              f"busy = attention kernel {st['ours']:.3f} ms + {kinds['ssd']} SSD mixers "
+              f"{total['ssd']:.2f} ms + {kinds['moe']} MoE layers {total['moe']:.2f} ms + "
+              f"{kinds['dense']} dense FFN layers {total['dense']:.2f} ms + the rest "
+              f"(attention projections, norms, embedding, head) {rest:.2f} ms; one layer "
+              f"alone on {n} tokens: {each}")
 
 
 # ---------------------------------------------------------------------------
@@ -2848,10 +3062,13 @@ def main() -> int:
     timer = Timer(dev)
     print("[2] kernels vs plain versions on the card")
     rows = [extend_phase(dev, timer), extend_mla_phase(dev, timer),
-            extend_phase(dev, timer, g=12, hd=192, cap=4160, shapes=EXTEND_SHAPES_192,
+            extend_phase(dev, timer, g=12, hd=192, cap=4160, shapes=EXTEND_SHAPES_GRID,
                          name="extend_attention_hd192"),
+            extend_phase(dev, timer, g=4, hd=128, shapes=EXTEND_SHAPES_GRID,
+                         name="extend_attention_g4"),
             decode_phase(dev, timer),
             decode_phase(dev, timer, g=12, hd=192, name="decode_attention_hd192", pack=False),
+            decode_phase(dev, timer, g=4, hd=128, name="decode_attention_g4", pack=False),
             quant_kv_phase(dev, timer), linreg_stats_phase(dev, timer),
             nb_stats_phase(dev, timer), logreg_sgd_phase(dev, timer)]
     for r in rows:
@@ -2890,6 +3107,13 @@ def main() -> int:
     for arch in ARCHS_8A:
         print(f"    reduced {arch} (fp32): card vs CPU")
         reduced_parity(dev, reduced(get_config(arch)))
+    for arch in ("mamba2-130m", "jamba-v0.1-52b"):
+        print(f"    reduced {arch} (SSD; fp32): card vs CPU")
+        reduced_parity(dev, reduced(get_config(arch)))
+        print(f"    reduced {arch} (bf16 params and compute): card vs CPU")
+        reduced_bf16_parity(dev, reduced(get_config(arch)))
+    print("    reduced jamba-v0.1-52b (fp32): SessionManager, card vs CPU")
+    reduced_sessions(dev, reduced(get_config("jamba-v0.1-52b")))
 
     print(f"[4] full-width main path ({FULL_LAYERS} layers, bf16)")
     counts, eng, ref = main_path(dev)
@@ -2912,6 +3136,13 @@ def main() -> int:
           f"layers, bf16)")
     counts.update(nemotron_main_path(dev))
     torch.cuda.empty_cache()
+    print("[13] SSD serving at full width")
+    print("  (a) mamba2-130m, 24 layers (full depth), fp32 params, bf16 compute")
+    mamba_main_path(dev)
+    torch.cuda.empty_cache()
+    print(f"  (b) jamba-v0.1-52b, {JAMBA_LAYERS} layers, bf16")
+    counts.update(jamba_main_path(dev))
+    torch.cuda.empty_cache()
 
     print("[7] analytics engine (200K x 10): card vs CPU")
     analytics_parity(dev)
@@ -2932,6 +3163,12 @@ def main() -> int:
         "decode_attention_hd192": ("src/repro_torch/kernels/decode_attention/csrc/"
                                    "decode_attention.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:103"),
+        "extend_attention_g4": ("src/repro_torch/kernels/extend_attention/csrc/"
+                                "extend_attention.cu",
+                                "src/repro/kernels/extend_attention/kernel.py:108"),
+        "decode_attention_g4": ("src/repro_torch/kernels/decode_attention/csrc/"
+                                "decode_attention.cu",
+                                "src/repro/kernels/decode_attention/kernel.py:103"),
         "quant_kv": ("src/repro_torch/kernels/quant_kv/csrc/quant_kv.cu",
                      "src/repro/kernels/quant_kv/kernel.py:50"),
         "linreg_stats": ("src/repro_torch/kernels/linreg_stats/csrc/linreg_stats.cu",

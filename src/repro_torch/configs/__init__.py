@@ -10,7 +10,9 @@ import dataclasses
 from .base import ArchConfig, MLAConfig, MoEConfig, SSMConfig
 from .deepseek_67b import CONFIG as _deepseek_67b
 from .deepseek_v2_236b import CONFIG as _deepseek_v2_236b
+from .jamba_v01_52b import CONFIG as _jamba
 from .kimi_k2_1t_a32b import CONFIG as _kimi
+from .mamba2_130m import CONFIG as _mamba2
 from .mixtral_8x7b import CONFIG as _mixtral
 from .nemotron_4_340b import CONFIG as _nemotron
 from .phi3_medium_14b import CONFIG as _phi3
@@ -18,7 +20,7 @@ from .qwen3_32b import CONFIG as _qwen3
 
 ARCHS: dict[str, ArchConfig] = {c.name: c for c in [_deepseek_67b, _phi3, _nemotron,
                                                     _qwen3, _kimi, _deepseek_v2_236b,
-                                                    _mixtral]}
+                                                    _jamba, _mamba2, _mixtral]}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,21 +1,27 @@
-"""Language-model assembly for decoder stacks of attention or MLA layers
+"""Language-model assembly for decoder stacks of attention, MLA or SSD layers
 with dense or MoE feed-forward layers.
 
 A config compiles into **segments** ``(period, n_periods)`` exactly as in
 ``repro.models.lm``; parameters and serving caches keep the JAX package's
 layer-stacked layout (parameter leaves ``(L, ...)``, cache leaves
 ``(L, B, T, KV, hd)``, MLA's latent ``(L, B, T, kv_lora)`` and
-``(L, B, T, rope)``, the sequence at axis 2), so the two packages compare
-leaf by leaf.  Where JAX scans over stacked layers the port loops
-over them in Python, indexing views of the stacked tensors.
+``(L, B, T, rope)``, the sequence at axis 2; SSD's running state ``conv``
+``(L, B, W−1, C)`` and ``ssm`` ``(L, B, h, p, n)``, the state at the
+cache's end), so the two packages compare leaf by leaf.  Where JAX scans
+over stacked layers the port loops over them in Python, indexing views of
+the stacked tensors.
 
 Serving entry points update caches **in place**: ``prefill_extend`` and
 ``decode_step`` write the new K/V (or latent) rows into the cache tensors
-they are given and return the same tree (JAX returns new arrays).
+they are given, and an SSD layer computes its new state from the cache
+views and then copies it over them; both return the same tree (JAX returns
+new arrays).
 
-Ported mixers: GQA attention (with ``repro``'s ``expand_kv`` prefill) and
-MLA; feed-forward layers: dense and routed MoE, SwiGLU or squared-ReLU,
-SiLU and GELU.  SSD and cross-attention wait for ROADMAP.md §1 item 8.
+Ported mixers: GQA attention (with ``repro``'s ``expand_kv`` prefill), MLA
+and the Mamba-2 SSD mixer (pure SSD stacks and hybrid SSD + attention
+periods); feed-forward layers: dense and routed MoE, SwiGLU or
+squared-ReLU, SiLU and GELU.  Cross-attention waits for ROADMAP.md §1
+item 8c.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
+from . import ssd as ssd_mod
 from .common import (CACHE_STATE_KEYS, cache_leaf_key, rms_norm,
                      tree_map_with_path)
 
@@ -142,6 +149,25 @@ def _mla_specs(cfg: ArchConfig) -> dict:
     }
 
 
+def _ssd_specs(cfg: ArchConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.d_inner(d)
+    h = s.n_heads(d)
+    gn = s.n_groups * s.d_state
+    conv_ch = d_in + 2 * gn
+    return {
+        "w_in": ParamSpec((d, 2 * d_in + 2 * gn + h)),
+        "conv_w": ParamSpec((s.conv_width, conv_ch)),
+        "conv_b": ParamSpec((conv_ch,), "zeros"),
+        "a_log": ParamSpec((h,), "ones"),
+        "d_skip": ParamSpec((h,), "ones"),
+        "dt_bias": ParamSpec((h,), "zeros"),
+        "out_norm": ParamSpec((d_in,), "ones"),
+        "w_out": ParamSpec((d_in, d), scale=cfg.n_layers ** -0.5),
+    }
+
+
 def _moe_specs(cfg: ArchConfig) -> dict:
     m = cfg.moe
     d = cfg.d_model
@@ -161,8 +187,8 @@ def _moe_specs(cfg: ArchConfig) -> dict:
 
 def _layer_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     d = cfg.d_model
-    out: dict = {"ln1": ParamSpec((d,), "ones"),
-                 "mixer": _mla_specs(cfg) if spec.mixer == "mla" else _attn_specs(cfg)}
+    mixer = {"attn": _attn_specs, "mla": _mla_specs, "ssd": _ssd_specs}[spec.mixer]
+    out: dict = {"ln1": ParamSpec((d,), "ones"), "mixer": mixer(cfg)}
     if spec.mlp != "none":
         out["ln2"] = ParamSpec((d,), "ones")
         out["mlp"] = _moe_specs(cfg) if spec.mlp == "moe" else _dense_mlp_specs(cfg, cfg.d_ff)
@@ -174,21 +200,15 @@ def _stack_specs(tree, n: int):
         lambda _, s: ParamSpec((n,) + s.shape, s.init, s.scale), tree)
 
 
-def _unsupported(cfg: ArchConfig) -> list[str]:
-    why = []
-    if cfg.ssm is not None:
-        why.append("SSD layers")
-    if cfg.encoder_layers or cfg.cross_attn_every or cfg.vision_context:
-        why.append("cross-attention")
-    return why
+def _unsupported(cfg: ArchConfig) -> bool:
+    return bool(cfg.encoder_layers or cfg.cross_attn_every or cfg.vision_context)
 
 
 def param_specs(cfg: ArchConfig) -> dict:
     """Spec tree of the config's stack (JAX key names)."""
-    why = _unsupported(cfg)
-    if why:
+    if _unsupported(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(why)} not ported yet (ROADMAP.md §1 item 8)")
+            f"{cfg.name}: cross-attention not ported yet (ROADMAP.md §1 item 8c)")
     d = cfg.d_model
     specs: dict = {
         "embed": ParamSpec((cfg.vocab_size, d)),
@@ -239,6 +259,11 @@ def _mla_params(p: dict) -> mla_mod.MLAParams:
                              p["kv_norm"], p["w_uk"], p["w_uv"], p["w_o"])
 
 
+def _ssd_params(p: dict) -> ssd_mod.SSDParams:
+    return ssd_mod.SSDParams(p["w_in"], p["conv_w"], p["conv_b"], p["a_log"],
+                             p["d_skip"], p["dt_bias"], p["out_norm"], p["w_out"])
+
+
 def _moe_params(p: dict) -> moe_mod.MoEParams:
     shared = None
     if "shared" in p:
@@ -250,12 +275,12 @@ def _moe_params(p: dict) -> moe_mod.MoEParams:
 
 
 #: the cache leaves of each mixer, in the order its entry points return them
-CACHE_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope")}
+CACHE_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"), "ssd": ("conv", "ssm")}
 
 
 class LM:
-    """Decoder LM for one ArchConfig of attention or MLA layers with dense
-    or MoE feed-forward layers.
+    """Decoder LM for one ArchConfig of attention, MLA or SSD layers with
+    dense or MoE feed-forward layers.
 
     ``device`` is where :meth:`init` allocates by default; every forward
     entry point runs on the device of the tokens it is given.
@@ -338,7 +363,11 @@ class LM:
         kv: dict = {}
         for seg, j, _, spec, p, _ in self._layers(params):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
-            if spec.mixer == "mla":
+            if spec.mixer == "ssd":
+                mixed, leaves = ssd_mod.ssd_block(
+                    _ssd_params(p["mixer"]), cfg.ssm, cfg.d_model, h,
+                    norm_eps=cfg.norm_eps, return_state=True)
+            elif spec.mixer == "mla":
                 mixed, leaves = mla_mod.mla_self_attention(
                     _mla_params(p["mixer"]), cfg.mla, h, positions,
                     theta=cfg.rope_theta, block=cfg.attn_block)
@@ -361,10 +390,12 @@ class LM:
 
         Given caches whose sequence axis is padded to some capacity ``cap``
         and holds valid state for [0, start), process ``tokens`` (B, nb) at
-        positions [start, start+nb) — writing their KV into the caches —
-        and return (last-position logits, the same caches, now valid to
-        start+nb).  ``start`` is an int or a 0-d integer tensor; it stays
-        on the device.  ``cap`` must be ≥ start+nb (the caller buckets it).
+        positions [start, start+nb) — writing their KV into the caches,
+        and for SSD layers resuming from the cache's (conv, ssm) state and
+        writing the state at start+nb over it — and return (last-position
+        logits, the same caches, now valid to start+nb).  ``start`` is an
+        int or a 0-d integer tensor; it stays on the device.  ``cap`` must
+        be ≥ start+nb (the caller buckets it).
         """
         cfg = self.cfg
         b, nb = tokens.shape
@@ -373,7 +404,13 @@ class LM:
         positions = (start + torch.arange(nb, device=tokens.device)).expand(b, nb)
         for _, _, _, spec, p, (c0, c1) in self._layers(params, caches):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
-            if spec.mixer == "mla":
+            if spec.mixer == "ssd":
+                mixed, state = ssd_mod.ssd_block(
+                    _ssd_params(p["mixer"]), cfg.ssm, cfg.d_model, h,
+                    norm_eps=cfg.norm_eps, return_state=True, initial=(c0, c1))
+                c0.copy_(state[0])
+                c1.copy_(state[1])
+            elif spec.mixer == "mla":
                 mixed, _ = mla_mod.mla_extend(
                     _mla_params(p["mixer"]), cfg.mla, h, c0, c1, positions, start,
                     theta=cfg.rope_theta)
@@ -431,7 +468,13 @@ class LM:
         x = self._embed(params, tokens)
         for _, _, _, spec, p, (c0, c1) in self._layers(params, caches):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
-            if spec.mixer == "mla":
+            if spec.mixer == "ssd":
+                mixed, state = ssd_mod.ssd_decode(
+                    _ssd_params(p["mixer"]), cfg.ssm, cfg.d_model, h, (c0, c1),
+                    norm_eps=cfg.norm_eps)
+                c0.copy_(state[0])
+                c1.copy_(state[1])
+            elif spec.mixer == "mla":
                 mixed, _ = mla_mod.mla_decode(
                     _mla_params(p["mixer"]), cfg.mla, h, c0, c1, pos,
                     theta=cfg.rope_theta)

@@ -32,8 +32,8 @@ from repro_torch.core.descriptors import Range
 from repro_torch.core.optimizer import Plan, baseline_plan, shortest_plan
 from repro_torch.kernels.common import bucket_len
 
-from .kv_cache import (DEFAULT_DOC, SegmentStore, cache_len, chunk_segment,
-                       clone_cache, insert_cache, pad_cache_to, slice_cache)
+from .kv_cache import (DEFAULT_DOC, SegmentStore, adopt_cache, cache_len,
+                       chunk_segment, insert_cache, pad_cache_to, slice_cache)
 
 
 @dataclass
@@ -239,11 +239,9 @@ class PrefixCacheBuilder:
                         if caches is None:
                             # plan anchor at 0: adopt a copy of the segment,
                             # grown to the request capacity (later steps
-                            # write into it in place; the stored copy stays
-                            # intact)
-                            caches = pad_cache_to(seg_caches, cap)
-                            if caches is seg.caches:
-                                caches = clone_cache(caches)
+                            # write into it in place, SSD state included;
+                            # the stored copy stays intact)
+                            caches = adopt_cache(seg_caches, cap)
                         else:
                             self._dispatch("insert", (cache_len(caches), seg.capacity))
                             caches = insert_cache(caches, seg_caches, st.rng.lo)

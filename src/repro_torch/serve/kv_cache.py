@@ -111,6 +111,20 @@ def pad_cache_to(caches, target: int):
     return pad_cache(caches, target - cur)
 
 
+def adopt_cache(seg, target: int):
+    """A working cache started from the segment ``seg``: SEQ leaves grown to
+    ``target`` capacity, every leaf in storage of its own.  The working
+    cache is written in place (K/V rows, and SSD state over its whole
+    leaf), so it must share nothing with the stored copy."""
+
+    def f(path, x):
+        if _leaf_key(path) in SEQ_KEYS and x.shape[2] < target:
+            return F.pad(x, [0, 0] * (x.ndim - 3) + [0, target - x.shape[2]])
+        return x.clone()
+
+    return tree_map_with_path(f, seg)
+
+
 def insert_cache(caches, seg, start: int):
     """Write a (bucket-padded) segment into a capacity-padded cache at
     ``start``, **in place**; returns ``caches``.

@@ -41,8 +41,8 @@ LAYERS = {"phi3-medium-14b": ["attn/dense"],
 
 
 def test_registry_holds_the_ported_archs():
-    assert set(LAYERS) | {"deepseek-67b", "deepseek-v2-236b", "nemotron-4-340b"} \
-        == set(ARCHS)
+    assert set(LAYERS) | {"deepseek-67b", "deepseek-v2-236b", "nemotron-4-340b",
+                          "mamba2-130m", "jamba-v0.1-52b"} == set(ARCHS)
 
 
 @pytest.mark.parametrize("arch", list(LAYERS))

@@ -135,6 +135,5 @@ def test_init_layout_and_unported_layers():
     np.testing.assert_allclose(float(params["embed"].std()), 0.02, rtol=0.1)
     import dataclasses
 
-    from repro_torch.configs.base import SSMConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        param_specs(dataclasses.replace(cfg, ssm=SSMConfig()))
+    with pytest.raises(NotImplementedError, match="item 8c"):
+        param_specs(dataclasses.replace(cfg, encoder_layers=2))
