@@ -30,8 +30,11 @@ printed) and runs:
      invariant to padded capacity within one split and across several
      (caps 2048 vs 8192), and bitwise the same for a row alone and in a
      batch, at hd 128 (G 8), at hd 192 (G 12, B1 at position 3072 and
-     B4) and at hd 128 (G 4, jamba's form, the same shapes); the int8
-     dequant kernel bitwise against its plain
+     B4) and at hd 128 (G 4, jamba's form, the same shapes); both at
+     whisper's form (hd 64, G 1, KV 20: extend at capacity 512 over nb 128 /
+     1 / 100 by t_real 128 / 257 / 448, bitwise invariant to capacity 320
+     vs 512, timed at nb 64, t_real 448; decode at B1 position 431 and
+     B4); the int8 dequant kernel bitwise against its plain
      version; each kernel's time (CUDA events, L2 flushed between
      launches) beside its bound, the plain version's time and one PyTorch
      library call's time (a yardstick the port never calls), the attention
@@ -70,8 +73,13 @@ printed) and runs:
      store quantizes nothing, the SSD state staying lossless) and
      ``jamba-v0.1-52b`` (SSD + GQA + MoE) the same two ways and in bf16,
      and ``SessionManager`` over reduced ``jamba-v0.1-52b`` as for
-     ``deepseek-67b``; the card must launch the extend kernel, and the
-     decode kernel where the stack has attention layers;
+     ``deepseek-67b``; then reduced ``whisper-large-v3`` and
+     ``llama-3.2-vision-11b`` (cross-attention over a 16-feature stub
+     context, 0.1 N(0, 1) from the seed) the same two ways, in bf16, and
+     through ``SessionManager``, and two sessions on the same tokens with
+     other features must share no segment; the card must launch the
+     extend kernel, and the decode kernel where the stack has attention
+     layers;
   4. the main path at full width: ``deepseek-67b`` widths, bf16, depth cut
      from 95 to 24 layers so the weights fit one 80 GB card, a 4096-token
      document, chunk 128, requests with prefixes 2048, 4096, 3072 (16 new
@@ -158,6 +166,24 @@ printed) and runs:
      of a decode step and a 128-token extend, split into the attention
      kernel, the SSD mixers, the MoE and dense feed-forward layers (each
      timed alone) and the rest.
+ 14. cross-attention serving at full width, after phase 13's model is
+     freed, bf16, full depth, over a stub context of 0.1 N(0, 1) features
+     from the seed, a stored segment's load priced as a device copy (the
+     serving calibration's plan printed beside it): (a)
+     ``whisper-large-v3`` (32 encoder layers over 1500 frames, 32 decoder
+     layers of MHA at hd 64, 1.60 B parameters), one 448-token transcript,
+     chunk 64, prefixes 192, 432, 320 and a replay of 192: the extend and
+     decode kernels' launches must equal 32 x their calls, the replay be
+     identical, a cold engine's 320 give the warm one's tokens (or part
+     where the cold run's top-2 gap is within ``REDUCED_BF16_LOGIT_ULPS``
+     bf16 ulps) and first logits within that many bf16 ulps of the warm
+     one's largest, every stored segment carry 245,760,000 B of ck/cv
+     beside its 64-token K/V; (b) ``llama-3.2-vision-11b`` (40 layers, 8 cross,
+     10.13 B parameters), phase 4's document and requests: launches 40 x
+     calls, the replay identical, every segment 52,461,568 B of ck/cv;
+     each then profiled (a decode step, an extend, whisper's cold prefill)
+     and split into the attention kernel, the cross-attention sublayers,
+     the encoder, the dense FFN layers (each timed alone) and the rest.
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -187,8 +213,9 @@ line and ``{"ok": true, "device": {...}}``; the line before them lists
 every kernel with its launches (on its own main path: batched serving,
 phase 9, for the attention kernels, the MLA main path, phase 10, for
 extend's MLA form, phase 11 for the two attention kernels' hd-192 forms,
-phase 13 (b) for their G-4 forms, the residency phase and phase 12 for the
-dequant kernel, analytics for the statistics kernels) and times.
+phase 13 (b) for their G-4 forms, phase 14 (a) for their hd-64 forms, the
+residency phase and phase 12 for the dequant kernel, analytics for the
+statistics kernels) and times.
 """
 from __future__ import annotations
 
@@ -332,20 +359,24 @@ EXTEND_SHAPES = ((128, 128), (128, 2049), (128, 4096), (1, 1), (1, 3000),
 #: every pair of nb 128, 1, 100 and t_real 128, 2049, 4096: at nemotron's
 #: G 12, hd 192 (phase 11's form) and at jamba's G 4, hd 128 (phase 13's)
 EXTEND_SHAPES_GRID = tuple((n, t) for n in (128, 1, 100) for t in (128, 2049, 4096))
+#: the same nb by t_real 128, 257, 448 (whisper's transcript, phase 14 (a))
+EXTEND_SHAPES_WHISPER = tuple((n, t) for n in (128, 1, 100) for t in (128, 257, 448))
 
 
-def extend_phase(dev, timer, *, g: int = 8, hd: int = 128, cap: int = 4096,
+def extend_phase(dev, timer, *, g: int = 8, hd: int = 128, kv: int = 8,
+                 cap: int = 4096, small: int = 2176, timed=(128, 4096),
                  shapes=EXTEND_SHAPES, name: str = "extend_attention") -> dict:
-    """The GQA extend kernel at B1 KV8 (G ``g``, head dim ``hd``, capacity
-    ``cap``) against its fp32 plain version, bitwise invariant to capacity
-    (2176 vs ``cap``), then timed at nb 128, t_real 4096."""
+    """The GQA extend kernel at B1 (``kv`` KV heads, G ``g``, head dim
+    ``hd``, capacity ``cap``) against its fp32 plain version, bitwise
+    invariant to capacity (``small`` vs ``cap``), then timed at ``timed`` =
+    (nb, t_real)."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from repro_torch.kernels.common import within_bf16_ulp
     from repro_torch.kernels.extend_attention.ops import extend_attention
     from repro_torch.kernels.extend_attention.ref import extend_attention_ref
 
-    b, kv, nb = 1, 8, 128
+    b, nb = 1, 128
     h = kv * g
     err = {}
     for dtype, (rtol, atol) in ((torch.float32, (1e-4, 1e-5)),
@@ -372,14 +403,13 @@ def extend_phase(dev, timer, *, g: int = 8, hd: int = 128, cap: int = 4096,
                           f"version (G {g}, hd {hd}, nb {n}, t_real {t_real}, {worst:.3f}x)")
             err[(dtype, n, t_real)] = e
 
-        # bit-invariance to padded capacity, garbage tail: caps 2176 vs cap
-        small = 2176
+        # bit-invariance to padded capacity, garbage tail: caps small vs cap
         q = randn((b, nb, h, hd), dtype, dev, 1)
         ks, vs = k[:, :small].contiguous(), v[:, :small].contiguous()
         kb = randn((b, cap, kv, hd), dtype, dev, 7) * 100
         vb = randn((b, cap, kv, hd), dtype, dev, 8) * 100
         kb[:, :small], vb[:, :small] = ks, vs
-        for t_real in (2100, small):
+        for t_real in (small - 76, small):
             same = torch.equal(extend_attention(q, ks, vs, t_real=t_real),
                                extend_attention(q, kb, vb, t_real=t_real))
             print(f"  extend G{g} hd{hd} {str(dtype)[6:]:8s} bit-invariant caps {small} vs "
@@ -388,8 +418,8 @@ def extend_phase(dev, timer, *, g: int = 8, hd: int = 128, cap: int = 4096,
                         f"{dtype}, t_real {t_real})")
         del kb, vb
 
-    # timing at the largest chunk of the main path: t_real 4096, bf16
-    dtype, t_real = torch.bfloat16, 4096
+    # timing at the main path's chunk at its last position, bf16
+    dtype, (nb, t_real) = torch.bfloat16, timed
     q = randn((b, nb, h, hd), dtype, dev, 1)
     k = randn((b, cap, kv, hd), dtype, dev, 2)
     v = randn((b, cap, kv, hd), dtype, dev, 3)
@@ -529,28 +559,41 @@ def extend_mla_phase(dev, timer) -> dict:
 DECODE_BF16_SPLIT_TOL = (1e-2, 2e-3)
 
 
-def decode_phase(dev, timer, *, g: int = 8, hd: int = 128,
-                 name: str = "decode_attention", pack: bool = True) -> dict:
-    """The decode kernel at KV8 (G ``g``, head dim ``hd``) against its plain
-    versions at B4, bitwise invariant to capacity and to the batch; with
-    ``pack``, also at phase 9's merged pack.  Timed at B1 (the serving step,
-    position 3072), B4 and the pack; returns the pack's row, or without one
-    the serving step's (phase 11's shape)."""
+#: the decode kernel's shapes (B, capacity, positions): the serving step
+#: at 3072 on phase 4's document, and B4 over the capacity; then its
+#: capacity-invariance pairs (small cap, big cap, positions), within one
+#: split and across several (through the combine)
+DECODE_SHAPES = {"B1": (1, 3088, [3072]), "B4": (4, 4096, [0, 1000, 2049, 4095]),
+                 "caps": ((256, 2048, [0, 17, 128, 255]),
+                          (2048, 8192, [0, 300, 1000, 2047]))}
+#: the same for whisper's 448-token transcript (phase 14 (a))
+DECODE_SHAPES_WHISPER = {"B1": (1, 448, [431]), "B4": (4, 512, [0, 100, 257, 511]),
+                         "caps": ((256, 2048, [0, 17, 128, 255]),
+                                  (512, 8192, [0, 100, 300, 511]))}
+
+
+def decode_phase(dev, timer, *, g: int = 8, hd: int = 128, kv: int = 8,
+                 shapes=DECODE_SHAPES, name: str = "decode_attention",
+                 pack: bool = True) -> dict:
+    """The decode kernel at ``kv`` KV heads (G ``g``, head dim ``hd``)
+    against its plain versions at ``shapes`` (the serving step B1, and
+    B4), bitwise invariant to capacity and to the batch; with ``pack``,
+    also at phase 9's merged pack.  Timed at B1, B4 and the pack; returns
+    the pack's row, or without one the serving step's."""
     from repro_torch.kernels.common import within_bf16_ulp
     from repro_torch.kernels.decode_attention.kernel import SPLIT
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (decode_attention_blocked,
                                                           decode_attention_split)
 
-    b, kv, cap = 4, 8, 4096
     h = kv * g
     split = SPLIT
     err = {}
     for dtype, (rtol, atol) in ((torch.float32, (1e-4, 1e-5)),
                                 (torch.bfloat16, (2e-2, 2e-2))):
-        # the serving step (B1 at position 3072), then B4 (kept for the
-        # invariance checks below)
-        for b, cap, pos in ((1, 3088, [3072]), (4, 4096, [0, 1000, 2049, 4095])):
+        # the serving step (B1), then B4 (kept for the invariance checks
+        # below)
+        for b, cap, pos in (shapes["B1"], shapes["B4"]):
             pos = torch.tensor(pos, dtype=torch.int32, device=dev)
             q = randn((b, 1, h, hd), dtype, dev, 4)
             k = randn((b, cap, kv, hd), dtype, dev, 5)
@@ -579,10 +622,9 @@ def decode_phase(dev, timer, *, g: int = 8, hd: int = 128,
                     check(ok, f"bf16 decode kernel strays past one bf16 ulp of its fp32 "
                               f"plain version (G {g}, hd {hd}, B{b}, {label}, {worst:.3f}x)")
 
-        # bit-invariance to padded capacity, garbage tail: one split (caps
-        # 256 vs 2048) and several splits through the combine (2048 vs 8192)
-        for small, big, pos_list in ((256, 2048, [0, 17, 128, 255]),
-                                     (2048, 8192, [0, 300, 1000, 2047])):
+        # bit-invariance to padded capacity, garbage tail: one split and
+        # several splits through the combine
+        for small, big, pos_list in shapes["caps"]:
             p_small = torch.tensor(pos_list, dtype=torch.int32, device=dev)
             ks, vs = k[:, :small].contiguous(), v[:, :small].contiguous()
             kb = randn((b, big, kv, hd), dtype, dev, 7) * 100
@@ -604,7 +646,8 @@ def decode_phase(dev, timer, *, g: int = 8, hd: int = 128,
         check(alone, f"decode output of a row depends on its batch (G {g}, hd {hd}, "
                      f"{dtype})")
     if not pack:
-        return decode_timing(dev, timer, g=g, hd=hd, name=name, err=err[torch.bfloat16])
+        return decode_timing(dev, timer, g=g, hd=hd, kv=kv, shapes=shapes, name=name,
+                             err=err[torch.bfloat16])
 
     # phase 9's merged pack, the shape whose launches the kernels line
     # reports: B 8 at capacity 4160, whose last 128-position split is
@@ -643,9 +686,9 @@ def decode_phase(dev, timer, *, g: int = 8, hd: int = 128,
 
 
 def decode_timing(dev, timer, *, g: int, hd: int, name: str, err: float,
-                  pack=None) -> dict:
-    """The bf16 decode kernel timed at B1 (the serving step at position
-    3072), B4 and, given ``pack`` = (B, capacity, positions), phase 9's
+                  kv: int = 8, shapes=DECODE_SHAPES, pack=None) -> dict:
+    """The bf16 decode kernel timed at ``shapes`` (B1, the serving step,
+    and B4) and, given ``pack`` = (B, capacity, positions), phase 9's
     merged pack, each beside its bound, plain version and SDPA; returns the
     pack's row, or the serving step's without one."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -654,9 +697,9 @@ def decode_timing(dev, timer, *, g: int, hd: int, name: str, err: float,
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_blocked
 
-    kv, dtype, split = 8, torch.bfloat16, SPLIT
+    dtype, split = torch.bfloat16, SPLIT
     h = kv * g
-    shapes = {"B1": (1, 3088, [3072]), "B4": (4, 4096, [0, 1000, 2049, 4095])}
+    shapes = {key: shapes[key] for key in ("B1", "B4")}
     if pack is not None:
         shapes[f"B{pack[0]}"] = pack
     rows = {}
@@ -1241,6 +1284,18 @@ def reduced_wide(cfg):
     return dataclasses.replace(reduced(cfg), n_heads=24, n_kv_heads=2, head_dim=192)
 
 
+def context_features(cfg, seed: int = 0) -> dict:
+    """A cross-attention stack's stub context, 0.1 N(0, 1) from ``seed`` as
+    fp32 host arrays: ``enc_feats`` (1, frames, d) or ``image_embeds`` (1,
+    patches, d); empty for a stack without cross layers."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, n in (("enc_feats", cfg.encoder_context), ("image_embeds", cfg.vision_context)):
+        if n:
+            out[key] = (0.1 * rng.standard_normal((1, n, cfg.d_model))).astype(np.float32)
+    return out
+
+
 def reduced_parity(dev, cfg) -> None:
     """A reduced fp32 config in ``ServeEngine`` on the card against the
     same on the CPU, with a plain store and an int8 store on host and disk
@@ -1262,8 +1317,10 @@ def reduced_parity(dev, cfg) -> None:
     kinds = [spec.mixer for period, _ in cpu_model.segments for spec in period]
     attention = any(k in ("attn", "mla") for k in kinds)
     doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 256).astype(np.int32)
+    ctx = context_features(cfg)
     with torch.no_grad():
-        _, caches = cpu_model.prefill(cpu_params, {"tokens": torch.from_numpy(doc[None, :64])})
+        _, caches = cpu_model.prefill(
+            cpu_params, {"tokens": torch.from_numpy(doc[None, :64]), **ctx})
     one = SegmentStore(precision="int8", device="cpu")
     one.put(Range(0, 64), caches)
     seg = one.nbytes()
@@ -1277,7 +1334,8 @@ def reduced_parity(dev, cfg) -> None:
             for name, m, p in (("cpu", cpu_model, cpu_params), ("cuda", gpu_model, gpu_params)):
                 store = None if store_kw is None else SegmentStore(
                     spill_dir=spill / f"{name}-{len(engines)}", device=m.device, **store_kw)
-                engines[name] = ServeEngine(m, p, doc, chunk_tokens=64, device=m.device,
+                engines[name] = ServeEngine(m, p, doc, extras=ctx, chunk_tokens=64,
+                                            device=m.device,
                                             **({} if store is None else {"store": store}))
             launches, decodes = ek.KERNEL.launches, dk.KERNEL.launches
             for prefix, n_new in ((200, 4), (256, 4), (130, 4), (256, 4)):
@@ -1325,7 +1383,7 @@ def reduced_parity(dev, cfg) -> None:
                       and min(st["cuda"][4].values()) > 0,
                       f"reduced int8 tiered run skipped a tier or the dequant: {st['cuda']}")
             logits = {name: torch.cat([
-                eng.builder.prefix_with_logits(doc, n, doc_id=eng.doc_id,
+                eng.builder.prefix_with_logits(doc, n, doc_id=eng.doc_id, extras=eng.context,
                                                capacity=n + 8)[0].float().cpu()
                 for n in (200, 256, 130)]) for name, eng in engines.items()}
             d = float((logits["cuda"] - logits["cpu"]).abs().max())
@@ -1368,12 +1426,14 @@ def reduced_bf16_parity(dev, cfg) -> None:
             "cpu fp32": (LM(cfg32, device="cpu"),
                          tree_map_with_path(lambda _, x: x.float(), cpu_params))}
     doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 256).astype(np.int32)
+    ctx = context_features(cfg)
     prefixes, requests = (200, 256, 130), ((200, 8), (256, 8), (130, 8), (256, 8))
     logits, streams = {}, {}
     for name, (model, params) in runs.items():
-        eng = ServeEngine(model, params, doc, chunk_tokens=64, device=model.device)
+        eng = ServeEngine(model, params, doc, extras=ctx, chunk_tokens=64,
+                          device=model.device)
         logits[name] = torch.cat([
-            eng.builder.prefix_with_logits(doc, n, doc_id=eng.doc_id,
+            eng.builder.prefix_with_logits(doc, n, doc_id=eng.doc_id, extras=eng.context,
                                            capacity=n + 8)[0].float().cpu()
             for n in prefixes])
         streams[name] = [eng.generate(n, n_new)[0] for n, n_new in requests]
@@ -1393,15 +1453,15 @@ def reduced_bf16_parity(dev, cfg) -> None:
           f"(> {REDUCED_BF16_LOGIT_ULPS} bf16 ulps of {ulp})")
 
 
-def session_script(mgr, docs, *, greedy: bool = True):
+def session_script(mgr, docs, *, greedy: bool = True, extras=None):
     """Phase 3's session script: four sessions over three 256-token
-    documents, three rounds of mixed prefixes (one request covers its
-    whole document, so its write-back forks it and the next round reads
-    the continuation), an edit before the last round.  Returns (streams,
-    plans with segment ids)."""
+    documents (each with ``extras``, a cross stack's context), three rounds
+    of mixed prefixes (one request covers its whole document, so its
+    write-back forks it and the next round reads the continuation), an
+    edit before the last round.  Returns (streams, plans with segment
+    ids)."""
     a, b, c = docs
-    s = [mgr.add_session(a), mgr.add_session(a), mgr.add_session(b),
-         mgr.add_session(c)]
+    s = [mgr.add_session(d, extras=extras) for d in (a, a, b, c)]
     rounds = (((s[0], 200, 4), (s[1], 256, 4), (s[2], 130, 4), (s[3], 64, 6)),
               ((s[0], 100, 3), (s[1], 260, 4), (s[2], 256, 4), (s[3], 200, 2)),
               ((s[0], 250, 4), (s[1], 200, 3), (s[2], 220, 4), (s[3], 256, 3)))
@@ -1442,18 +1502,20 @@ def reduced_sessions(dev, cfg) -> None:
     rng = np.random.default_rng(0)
     docs = [rng.integers(0, cfg.vocab_size, 256).astype(np.int32) for _ in range(3)]
     runs = {"cpu": (cpu_model, cpu_params), "cuda": (gpu_model, gpu_params)}
+    ctx = context_features(cfg)
+    script = lambda mgr, **kw: session_script(mgr, docs, extras=ctx, **kw)  # noqa: E731
 
     def manager(name, **kw):
         m, p = runs[name]
         return SessionManager(m, p, chunk_tokens=64, max_batch=8, **kw)
 
     probe = manager("cuda")
-    session_script(probe, docs)
+    script(probe)
     budget = probe.store.nbytes() // 2
     out = {}
     for name in runs:
         mgr = manager(name, byte_budget=budget)
-        streams, plans = session_script(mgr, docs)
+        streams, plans = script(mgr)
         out[name] = (streams, plans, sorted(mgr.store._segs), mgr.store.evictions,
                      mgr.store.cross_session_hits, mgr.sched.decode_segments)
     c = out["cuda"]
@@ -1467,14 +1529,14 @@ def reduced_sessions(dev, cfg) -> None:
           f"reduced sessions skipped eviction, cross-session reuse or write-back: {c[3:]}")
     split = manager("cuda", async_prefill=False, merge_decode_packs=False)
     merged = manager("cuda", async_prefill=False)
-    same = session_script(split, docs)[0] == session_script(merged, docs)[0]
+    same = script(split)[0] == script(merged)[0]
     print(f"  merged packs (mean batch {merged.sched.mean_batch:.2f}) vs capacity-split "
           f"(mean batch {split.sched.mean_batch:.2f}): identical streams: {same}")
     check(same, "reduced sessions: merged packs stream differently from split ones")
     st = {}
     for mode in (False, True):
         mgr = manager("cuda", byte_budget=budget, async_prefill=mode)
-        streams, _ = session_script(mgr, docs, greedy=False)
+        streams, _ = script(mgr, greedy=False)
         st[mode] = (streams, store_state(mgr.store), mgr)
     a, s = st[True], st[False]
     payload = all(torch.equal(x, y) for sid, seg in a[2].store._segs.items()
@@ -1485,6 +1547,42 @@ def reduced_sessions(dev, cfg) -> None:
           f"identical streams {a[0] == s[0]}, store {a[1] == s[1]}, payloads {payload}")
     check(a[0] == s[0] and a[1] == s[1] and payload,
           "reduced sessions: async prefill differs from sync in tokens or store")
+
+
+def context_leaves(caches) -> list:
+    """The ck/cv leaves of a cache tree, in layer order."""
+    return [x for seg in caches for layer in seg.values()
+            for name, x in layer.items() if name in ("ck", "cv")]
+
+
+def reduced_context_isolation(dev, cfg) -> None:
+    """Two sessions on the card over the same tokens with other context
+    features: other document ids, no shared segment, no reuse across them,
+    and each document's stored ck/cv its own context's."""
+    from repro_torch.models.lm import LM
+    from repro_torch.serve.session import SessionManager
+
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 256).astype(np.int32)
+    mgr = SessionManager(model, params, chunk_tokens=64)
+    sids = [mgr.add_session(doc, extras=context_features(cfg, seed)) for seed in (0, 1)]
+    plans = []
+    for sid in sids:
+        plans.append(mgr.submit(sid, 200, 4))
+        mgr.run()
+    keys = [mgr.sessions[sid].doc_id for sid in sids]
+    segs = [{i for i, _ in mgr.store.index(k).items()} for k in keys]
+    ck = [context_leaves(mgr.store._segs[min(ids)].caches) for ids in segs]
+    same_ck = all(torch.equal(a, b) for a, b in zip(*ck))
+    print(f"  same tokens, other context: document ids {keys}, segments {len(segs[0])} and "
+          f"{len(segs[1])}, shared {len(segs[0] & segs[1])}, second request reused "
+          f"{len(plans[1].models_used)}, cross-session hits {mgr.store.cross_session_hits}, "
+          f"stored ck/cv equal: {same_ck}")
+    check(keys[0] != keys[1] and segs[0] and segs[1] and not segs[0] & segs[1]
+          and not plans[1].models_used and mgr.store.cross_session_hits == 0
+          and not same_ck,
+          "sessions with other context features shared a document or a segment")
 
 
 def deferred_build_waits_for_nothing(dev) -> None:
@@ -1805,14 +1903,17 @@ def where_time_goes(eng, dev) -> None:
 # phase 10: the MLA main path at full width
 # ---------------------------------------------------------------------------
 
-def serve_full_width(cfg, dev, cost_model=None) -> tuple:
+def serve_full_width(cfg, dev, cost_model=None, *, doc_len: int = 4096,
+                     prefixes=(2048, 4096, 3072, 2048), chunk: int = 128,
+                     extras=None) -> tuple:
     """``cfg`` at its published widths (depth already cut), bf16, through
     ``ServeEngine`` (its planner priced by ``cost_model``, by default the
-    serving calibration): phase 4's document and requests (prefixes 2048,
-    4096, 3072 and a replay of 2048, 16 new tokens each), with the extend and
-    decode kernels' launches and the model's extend and decode calls
-    counted.  Requests 2 and 3 must reuse stored segments, the replay must
-    give identical tokens and the logits must be finite.  Returns (engine,
+    serving calibration; a cross stack's context ``extras``): by default
+    phase 4's document and requests (prefixes 2048, 4096, 3072 and a replay
+    of 2048, 16 new tokens each, chunk 128), with the extend and decode
+    kernels' launches and the model's extend and decode calls counted.
+    Requests 2 and 3 must reuse stored segments, the replay must give
+    identical tokens and the logits must be finite.  Returns (engine,
     counts, attention layers, {prefix: tokens} of the first three
     requests)."""
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -1833,8 +1934,8 @@ def serve_full_width(cfg, dev, cost_model=None) -> tuple:
           f"{time.perf_counter() - t0:.1f} s; layers {kinds}")
     layers = sum(n for period, n in model.segments for spec in period
                  if spec.mixer in ("attn", "mla"))
-    doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 4096).astype(np.int32)
-    eng = ServeEngine(model, params, doc, chunk_tokens=128, device=dev,
+    doc = np.random.default_rng(0).integers(0, cfg.vocab_size, doc_len).astype(np.int32)
+    eng = ServeEngine(model, params, doc, extras=extras, chunk_tokens=chunk, device=dev,
                       cost_model=cost_model)
     calls = {"extend": 0, "decode": 0}
 
@@ -1849,20 +1950,23 @@ def serve_full_width(cfg, dev, cost_model=None) -> tuple:
     ek.KERNEL.launches = 0
     dk.KERNEL.launches = 0
     results = []
-    for prefix in (2048, 4096, 3072, 2048):
+    for prefix in prefixes:
         s0 = dataclasses.replace(eng.stats)
         toks, plan = eng.generate(prefix, 16)
         st = eng.stats
         pre = st.prefill_s - s0.prefill_s
         dec = st.decode_s - s0.decode_s
         reused = st.tokens_reused - s0.tokens_reused
+        computed = st.tokens_computed - s0.tokens_computed
         print(f"  request prefix {prefix}: prefill {pre:.3f} s "
-              f"({reused} tokens reused, {len(plan.models_used)} segments), "
-              f"decode {16 / dec:.1f} tok/s, tokens {toks[:8]}")
+              f"({reused} tokens reused, {len(plan.models_used)} segments; {computed} "
+              f"computed, {computed / pre:.0f} tok/s), decode {16 / dec:.1f} tok/s, "
+              f"tokens {toks[:8]}")
         check(all(0 <= t < cfg.vocab_size for t in toks), "token out of range")
         results.append((prefix, toks, plan))
-    logits, _, _ = eng.builder.prefix_with_logits(doc, 3072, doc_id=eng.doc_id,
-                                                  capacity=3088)
+    logits, _, _ = eng.builder.prefix_with_logits(doc, prefixes[2], doc_id=eng.doc_id,
+                                                  extras=eng.context,
+                                                  capacity=prefixes[2] + 16)
     torch.cuda.synchronize(dev)
     counts = {"extend_calls": calls["extend"], "decode_calls": calls["decode"],
               "extend": ek.KERNEL.launches, "decode": dk.KERNEL.launches}
@@ -1875,7 +1979,7 @@ def serve_full_width(cfg, dev, cost_model=None) -> tuple:
     check(results[3][1] == results[0][1],
           f"{cfg.name}: the replayed request from stored segments changed its tokens")
     mem = torch.cuda.max_memory_allocated(dev)
-    print("  replay of prefix 2048 from the store: identical tokens: True")
+    print(f"  replay of prefix {prefixes[3]} from the store: identical tokens: True")
     print(f"  store: {len(eng.store)} segments, {eng.store.nbytes() / 2**20:.1f} MiB; "
           f"max memory allocated {mem / 2**30:.2f} GiB")
     return eng, counts, layers, {r[0]: r[1] for r in results[:3]}
@@ -2157,6 +2261,202 @@ def hybrid_where_time_goes(eng, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: cross-attention serving at full width
+# ---------------------------------------------------------------------------
+
+#: phase 14 (a)'s traffic: one transcript of whisper's 448 target positions
+#: (max_target_positions), chunk 64, requests for prefixes 192, 432 and 320
+#: and a replay of 192
+WHISPER_TRAFFIC = dict(doc_len=448, prefixes=(192, 432, 320, 192), chunk=64)
+#: phase 4's traffic (phase 14 (b))
+PHASE4_TRAFFIC = dict(doc_len=4096, prefixes=(2048, 4096, 3072, 2048), chunk=128)
+
+
+def cross_main_path(dev, arch: str) -> dict:
+    """``arch`` (``whisper-large-v3`` or ``llama-3.2-vision-11b``) at its
+    published widths and full depth, bf16, through ``ServeEngine``
+    (:func:`serve_full_width`) over a stub context of 0.1 N(0, 1) features
+    from the seed: whisper on one 448-token transcript
+    (``WHISPER_TRAFFIC``), llama-vision on phase 4's document and requests.
+    The extend and decode kernels must launch once a layer per call, every
+    stored segment must carry the context's K/V (ck/cv of every cross
+    layer) beside its own, and for whisper a cold engine's request for 320
+    must give the warm one's tokens (or part at a near-tie) and first
+    logits within ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps.  The planner
+    prices a segment's load as a device copy; the serving calibration's
+    plan over the same store is printed.  Then the step profile.  Returns
+    the two kernels' launches (whisper's are the hd 64 / G 1 forms' main
+    path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost import serve_cost_model
+    from repro_torch.kernels.common import bf16_ulp
+    from repro_torch.serve.engine import ServeEngine
+
+    whisper = arch == "whisper-large-v3"
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    g = cfg.n_heads // cfg.n_kv_heads
+    n_ctx = cfg.encoder_context or cfg.vision_context
+    context = (f"encoder {cfg.encoder_layers} layers over {n_ctx} frames" if whisper
+               else f"vision_proj over {n_ctx} patches, cross layer every "
+                    f"{cfg.cross_attn_every}")
+    print(f"  config {cfg.name}: d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} KV (G {g}), head_dim {cfg.head_dim}, d_ff {cfg.d_ff} "
+          f"{cfg.activation}, vocab {cfg.vocab_size}, {context}; {cfg.n_layers} decoder "
+          f"layers (full depth), params {cfg.param_dtype} (published config: "
+          f"{get_config(arch).param_dtype}), compute {cfg.compute_dtype}")
+    traffic = WHISPER_TRAFFIC if whisper else PHASE4_TRAFFIC
+    chunk, prefixes = traffic["chunk"], traffic["prefixes"]
+    ctx = context_features(cfg, seed=0)
+    from repro_torch.models.lm import build_segments
+
+    n_cross = sum(n for period, n in build_segments(cfg) for spec in period if spec.cross)
+    ck_bytes = n_cross * 2 * n_ctx * cfg.n_kv_heads * cfg.head_dim * 2
+    kv_bytes = cfg.n_layers * 2 * chunk * cfg.n_kv_heads * cfg.head_dim * 2
+    cost = serve_cost_model(load_s_per_byte=2 / HBM_BYTES_PER_S)
+    default = serve_cost_model()
+    seg = ck_bytes + kv_bytes
+    print(f"  a {chunk}-token segment: {kv_bytes} B of K/V + {ck_bytes} B of ck/cv "
+          f"({n_cross} cross layers x 2 x {n_ctx} x {cfg.n_kv_heads} x {cfg.head_dim} x "
+          f"2 B); prefill priced {default.F(chunk) * 1e3:.2f} ms; its load priced "
+          f"{default.C(seg) * 1e3:.2f} ms by the serving calibration, "
+          f"{cost.C(seg) * 1e3:.4f} ms as a device copy (this phase's planner)")
+    eng, counts, layers, warm = serve_full_width(cfg, dev, cost, extras=ctx, **traffic)
+    for name in ("extend", "decode"):
+        launches, calls = counts[name], counts[f"{name}_calls"]
+        print(f"  {name} launches {launches} = {layers} layers x {calls} {name} calls: "
+              f"{launches == layers * calls}")
+        check(layers == cfg.n_layers and calls > 0 and launches == layers * calls,
+              f"{arch} {name} launches {launches} != {layers} x {calls} {name} calls")
+    sizes = sorted({sum(x.numel() * x.element_size() for x in context_leaves(s.caches))
+                    for s in eng.store._segs.values()})
+    caps = sorted({s.capacity for s in eng.store._segs.values()})
+    print(f"  stored segments: {len(eng.store)}, ck/cv bytes each {sizes} (expected "
+          f"{ck_bytes}), K/V capacities {caps}")
+    # whisper stores every segment at the chunk's capacity (chunk 64 = the
+    # store's bucket); llama-vision's ragged ones may take a 64 bucket
+    check(sizes == [ck_bytes] and (caps == [chunk] if whisper else max(caps) <= chunk),
+          f"{arch}: a stored segment's ck/cv bytes {sizes} or capacity {caps} is off")
+    priced = ServeEngine(eng.model, eng.params, eng.doc, extras=ctx, store=eng.store,
+                         doc_id=eng.doc_id, cost_model=default, chunk_tokens=chunk,
+                         device=dev)
+    plan, plan_copy = priced.plan_prefix(prefixes[2] - 1), eng.plan_prefix(prefixes[2] - 1)
+    print(f"  prefix {prefixes[2]} over the warm store: the serving calibration's plan "
+          f"reuses {len(plan.models_used)} segments (cost {plan.cost * 1e3:.2f} ms), the "
+          f"device-copy price's {len(plan_copy.models_used)} (cost "
+          f"{plan_copy.cost * 1e3:.2f} ms)")
+    del priced
+    if whisper:
+        # warm (the store of the requests above) against cold engines, the
+        # first logits too: a random-weight whisper's greedy stream can
+        # settle on one token (32 cross sublayers add a near-constant vector
+        # to the residual), so equal tokens alone say little
+        def cold_engine():
+            return ServeEngine(eng.model, eng.params, eng.doc, extras=ctx,
+                               chunk_tokens=chunk, device=dev, cost_model=cost)
+
+        lg = {name: e.builder.prefix_with_logits(e.doc, prefixes[2], doc_id=e.doc_id,
+                                                 extras=e.context,
+                                                 capacity=prefixes[2] + 16)[0].float()
+              for name, e in (("cold", cold_engine()), ("warm", eng))}
+        dl = float((lg["warm"] - lg["cold"]).abs().max())
+        gap, top = top2_gap(lg["cold"])
+        ulp = float(bf16_ulp(torch.tensor(top)))
+        print(f"  prefix {prefixes[2]}: first logits warm vs cold max |d| {dl:.4g} "
+              f"({dl / ulp:.2f} bf16 ulps of the largest logit {top:.4g}; limit "
+              f"{REDUCED_BF16_LOGIT_ULPS}); the cold run's top-2 gap {gap:.4g} "
+              f"({gap / ulp:.2f} ulps)")
+        check(dl <= REDUCED_BF16_LOGIT_ULPS * ulp,
+              f"{arch}: warm and cold first logits at {prefixes[2]} differ by {dl}")
+        cold = cold_engine()
+        toks, _ = cold.generate(prefixes[2], 16)
+        at = next((i for i, (x, y) in enumerate(zip(toks, warm[prefixes[2]])) if x != y),
+                  None)
+        ulps = 0.0
+        if at is not None:
+            gap, top = top2_gap(single_logits(cold, prefixes[2], toks, at))
+            ulps = gap / float(bf16_ulp(torch.tensor(top)))
+        print(f"  prefix {prefixes[2]} tokens: warm {warm[prefixes[2]]} cold {toks}: "
+              + ("identical" if at is None else
+                 f"part at token {at}, the cold run's top-2 gap there {ulps:.2f} bf16 "
+                 f"ulps of its largest logit (limit {REDUCED_BF16_LOGIT_ULPS})"))
+        check(ulps <= REDUCED_BF16_LOGIT_ULPS,
+              f"{arch}: the warm request for {prefixes[2]} parted from a cold engine's "
+              f"away from a near-tie ({ulps:.2f} ulps)")
+        del cold
+        torch.cuda.empty_cache()
+    cross_where_time_goes(eng, dev, decode_at=prefixes[2], extend_at=prefixes[0],
+                          n_ext=chunk)
+    return {"extend_attention_hd64": counts["extend"],
+            "decode_attention_hd64": counts["decode"]}
+
+
+def cross_where_time_goes(eng, dev, *, decode_at: int, extend_at: int, n_ext: int) -> None:
+    """torch.profiler over one decode step at ``decode_at`` and one
+    ``n_ext``-token extend at ``extend_at``, as phase 5 (and, with an
+    encoder, over the cold prefill of the first chunk); then one cross
+    sublayer, one dense FFN and the encoder alone on the same number of
+    tokens, so the step's device time splits into the attention kernel, the
+    cross-attention sublayers, the encoder, the dense FFN and the rest."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import _layer_params
+
+    model, params, doc, cfg = eng.model, eng.params, eng.doc, eng.model.cfg
+    label = cfg.name
+    logits, caches, _ = eng.builder.prefix_with_logits(
+        doc, decode_at, doc_id=eng.doc_id, extras=eng.context, capacity=decode_at + 16)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    pos = torch.tensor([decode_at], dtype=torch.int32, device=dev)
+    ext, _ = eng.builder.build_prefix(doc, extend_at, doc_id=eng.doc_id, extras=eng.context,
+                                      materialize=False, capacity=extend_at + n_ext)
+    chunk = torch.as_tensor(doc[None, extend_at:extend_at + n_ext].astype(np.int64),
+                            device=dev)
+    start = torch.tensor(extend_at, dtype=torch.int32, device=dev)
+    runs = {"decode": (1, lambda: model.decode_step(params, caches, tok, pos), 4),
+            "extend": (n_ext, lambda: model.prefill_extend(params, ext, chunk, start), 1)}
+    if cfg.encoder_layers:
+        first = eng.builder._tokens(doc[None, :n_ext])
+        runs["cold prefill"] = (n_ext, lambda: model.prefill(
+            params, {"tokens": first, **eng.context}), 1)
+    steps = {name: profile_steps(f"{label} {name} ({n} tokens)", k, fn, dev)
+             for name, (n, fn, k) in runs.items()}
+    (s, j), = {(s, j) for s, (period, _) in enumerate(model.segments)
+               for j, spec in enumerate(period) if spec.cross}
+    n_cross = model.segments[s][1]
+    n_dense = sum(n for period, n in model.segments for spec in period
+                  if spec.mlp == "dense")
+    lp = _layer_params(params["segments"][s][f"p{j}"], 0)
+    ctx_kv = (caches[s][f"p{j}"]["ck"][0], caches[s][f"p{j}"]["cv"][0])
+    enc_ms = 0.0
+    if cfg.encoder_layers:
+        enc_ms, enc_n = device_profile(lambda: model._context(params, eng.context, dev),
+                                       "", launches=2)
+        print(f"  {label} encoder alone ({cfg.encoder_layers} layers over "
+              f"{cfg.encoder_context} frames): {enc_ms:.3f} ms ({enc_n:g} device activities)")
+    for name, (n, _, _) in runs.items():
+        x = randn((1, n, cfg.d_model), model.compute_dtype, dev, 5)
+        cross_ms, cross_n = device_profile(lambda: model._cross(lp, x, ctx_kv), "", launches=5)
+        dense_ms, dense_n = device_profile(
+            lambda: moe_mod.dense_ffn(lp["mlp"], x, cfg.activation), "", launches=5)
+        st = steps[name]
+        each = (f"cross sublayer {cross_ms:.3f} ms ({cross_n:g} device activities), dense "
+                f"FFN {dense_ms:.3f} ms ({dense_n:g})")
+        if not st:
+            print(f"  {label} {name}: one layer's parts alone on {n} tokens: {each}; step "
+                  f"split not measured")
+            continue
+        enc = enc_ms if name == "cold prefill" else 0.0
+        cross_all, dense_all = cross_ms * n_cross, dense_ms * n_dense
+        rest = st["busy"] - st["ours"] - cross_all - dense_all - enc
+        print(f"  {label} {name} split: wall {st['wall']:.2f} ms = device busy "
+              f"{st['busy']:.2f} ms + host idle {max(st['wall'] - st['busy'], 0.0):.2f} ms; "
+              f"busy = attention kernel {st['ours']:.3f} ms + {n_cross} cross sublayers "
+              f"{cross_all:.2f} ms + encoder {enc:.2f} ms + {n_dense} dense FFN layers "
+              f"{dense_all:.2f} ms + the rest (self-attention projections, norms, "
+              f"embedding, head) {rest:.2f} ms; one layer's parts alone on {n} tokens: "
+              f"{each}")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: residency at full width
 # ---------------------------------------------------------------------------
 
@@ -2408,7 +2708,8 @@ def single_logits(eng, prefix: int, tokens: list, at: int):
     from, replayed through the same calls with the stream it produced."""
     model, params = eng.model, eng.params
     logits, caches, _ = eng.builder.prefix_with_logits(
-        eng.doc, prefix, doc_id=eng.doc_id, capacity=prefix + SESSION_NEW_TOKENS)
+        eng.doc, prefix, doc_id=eng.doc_id, extras=eng.context,
+        capacity=prefix + SESSION_NEW_TOKENS)
     pos = torch.tensor([prefix], dtype=torch.int32, device=eng.device)
     for tok in tokens[:at]:
         nxt = torch.tensor([[tok]], dtype=torch.int64, device=eng.device)
@@ -3069,6 +3370,10 @@ def main() -> int:
             decode_phase(dev, timer),
             decode_phase(dev, timer, g=12, hd=192, name="decode_attention_hd192", pack=False),
             decode_phase(dev, timer, g=4, hd=128, name="decode_attention_g4", pack=False),
+            extend_phase(dev, timer, g=1, hd=64, kv=20, cap=512, small=320, timed=(64, 448),
+                         shapes=EXTEND_SHAPES_WHISPER, name="extend_attention_hd64"),
+            decode_phase(dev, timer, g=1, hd=64, kv=20, shapes=DECODE_SHAPES_WHISPER,
+                         name="decode_attention_hd64", pack=False),
             quant_kv_phase(dev, timer), linreg_stats_phase(dev, timer),
             nb_stats_phase(dev, timer), logreg_sgd_phase(dev, timer)]
     for r in rows:
@@ -3114,6 +3419,15 @@ def main() -> int:
         reduced_bf16_parity(dev, reduced(get_config(arch)))
     print("    reduced jamba-v0.1-52b (fp32): SessionManager, card vs CPU")
     reduced_sessions(dev, reduced(get_config("jamba-v0.1-52b")))
+    for arch in ("whisper-large-v3", "llama-3.2-vision-11b"):
+        cfg = reduced(get_config(arch))
+        print(f"    reduced {arch} (cross-attention; fp32): card vs CPU")
+        reduced_parity(dev, cfg)
+        print(f"    reduced {arch} (bf16 params and compute): card vs CPU")
+        reduced_bf16_parity(dev, cfg)
+        print(f"    reduced {arch} (fp32): SessionManager, card vs CPU")
+        reduced_sessions(dev, cfg)
+        reduced_context_isolation(dev, cfg)
 
     print(f"[4] full-width main path ({FULL_LAYERS} layers, bf16)")
     counts, eng, ref = main_path(dev)
@@ -3143,6 +3457,13 @@ def main() -> int:
     print(f"  (b) jamba-v0.1-52b, {JAMBA_LAYERS} layers, bf16")
     counts.update(jamba_main_path(dev))
     torch.cuda.empty_cache()
+    print("[14] cross-attention serving at full width (bf16)")
+    print("  (a) whisper-large-v3, 32 encoder + 32 decoder layers (full depth)")
+    counts.update(cross_main_path(dev, "whisper-large-v3"))
+    torch.cuda.empty_cache()
+    print("  (b) llama-3.2-vision-11b, 40 layers (full depth, 8 cross)")
+    cross_main_path(dev, "llama-3.2-vision-11b")    # G 4 / hd 128: phase 13 (b)'s rows
+    torch.cuda.empty_cache()
 
     print("[7] analytics engine (200K x 10): card vs CPU")
     analytics_parity(dev)
@@ -3169,6 +3490,12 @@ def main() -> int:
         "decode_attention_g4": ("src/repro_torch/kernels/decode_attention/csrc/"
                                 "decode_attention.cu",
                                 "src/repro/kernels/decode_attention/kernel.py:103"),
+        "extend_attention_hd64": ("src/repro_torch/kernels/extend_attention/csrc/"
+                                  "extend_attention.cu",
+                                  "src/repro/kernels/extend_attention/kernel.py:108"),
+        "decode_attention_hd64": ("src/repro_torch/kernels/decode_attention/csrc/"
+                                  "decode_attention.cu",
+                                  "src/repro/kernels/decode_attention/kernel.py:103"),
         "quant_kv": ("src/repro_torch/kernels/quant_kv/csrc/quant_kv.cu",
                      "src/repro/kernels/quant_kv/kernel.py:50"),
         "linreg_stats": ("src/repro_torch/kernels/linreg_stats/csrc/linreg_stats.cu",

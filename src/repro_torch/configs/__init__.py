@@ -1,7 +1,7 @@
 """Config registry of the PyTorch port (+ reduced smoke variants).
 
-A copy of ``repro.configs`` restricted to the architectures whose layers
-the port implements; other archs are added when their mixers are.
+A copy of ``repro.configs``: every architecture the JAX package registers,
+in its order.
 """
 from __future__ import annotations
 
@@ -12,15 +12,18 @@ from .deepseek_67b import CONFIG as _deepseek_67b
 from .deepseek_v2_236b import CONFIG as _deepseek_v2_236b
 from .jamba_v01_52b import CONFIG as _jamba
 from .kimi_k2_1t_a32b import CONFIG as _kimi
+from .llama32_vision_11b import CONFIG as _llama_vision
 from .mamba2_130m import CONFIG as _mamba2
 from .mixtral_8x7b import CONFIG as _mixtral
 from .nemotron_4_340b import CONFIG as _nemotron
 from .phi3_medium_14b import CONFIG as _phi3
 from .qwen3_32b import CONFIG as _qwen3
+from .whisper_large_v3 import CONFIG as _whisper
 
 ARCHS: dict[str, ArchConfig] = {c.name: c for c in [_deepseek_67b, _phi3, _nemotron,
-                                                    _qwen3, _kimi, _deepseek_v2_236b,
-                                                    _jamba, _mamba2, _mixtral]}
+                                                    _qwen3, _whisper, _kimi,
+                                                    _deepseek_v2_236b, _jamba,
+                                                    _llama_vision, _mamba2, _mixtral]}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -11,6 +11,9 @@ a shared segment store.
 run on the CUDA device; ``--device cpu`` runs the same path on the CPU
 (the kernels' plain versions).  The flags are those of
 ``python -m repro.launch.serve`` and the printed lines keep its wording.
+A cross-attention stack (``whisper-large-v3``, ``llama-3.2-vision-11b``)
+serves over ``repro``'s stub context, zero encoder frames or image
+patches.
 
 Residency: ``--store-dir`` reloads a snapshot at start (when one exists),
 re-snapshots every ``--snapshot-every`` requests on the background writer
@@ -206,6 +209,17 @@ def _print_shard_report(st) -> None:
               f"{s['docs']} docs")
 
 
+def _extras(cfg) -> dict:
+    """The stub frontends' context features, ``repro``'s: zeros in fp32,
+    (1, 1500, d) encoder frames or (1, 1601, d) image patches."""
+    extras = {}
+    if cfg.encoder_layers:
+        extras["enc_feats"] = np.zeros((1, cfg.encoder_context, cfg.d_model), np.float32)
+    if cfg.vision_context:
+        extras["image_embeds"] = np.zeros((1, cfg.vision_context, cfg.d_model), np.float32)
+    return extras
+
+
 def run_single(args, cfg, model, params, rng, device) -> None:
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.session import doc_key
@@ -216,8 +230,9 @@ def run_single(args, cfg, model, params, rng, device) -> None:
     store_kw = (dict(store=store) if store is not None
                 else dict(byte_budget=budget,
                           eviction_policy=args.eviction_policy))
-    eng = ServeEngine(model, params, doc, chunk_tokens=args.chunk_tokens,
-                      doc_id=doc_key(doc), device=device, **store_kw)
+    extras = _extras(cfg)
+    eng = ServeEngine(model, params, doc, extras=extras, chunk_tokens=args.chunk_tokens,
+                      doc_id=doc_key(doc, extras), device=device, **store_kw)
     for i in range(args.requests):
         L = int(rng.integers(args.doc_len // 4, args.doc_len))
         toks, plan = eng.generate(L, args.new_tokens, greedy=False, seed=i)
@@ -254,11 +269,12 @@ def run_multi(args, cfg, model, params, rng, device) -> None:
                          decode_materialize=not args.no_decode_materialize,
                          async_prefill=args.async_prefill,
                          **store_kw)
+    extras = _extras(cfg)
     # the first `n_shared` sessions all serve one document; the rest get unique docs
     sids = []
     for i in range(args.sessions):
         doc = shared_doc if i < n_shared else unique_docs[i - n_shared]
-        sids.append(mgr.add_session(doc))
+        sids.append(mgr.add_session(doc, extras=extras))
 
     import time
 

@@ -6,7 +6,9 @@ unexpanded — scores are computed in grouped form (B, KV, G, S, block).
 The extend and decode paths attend over a capacity-padded KV cache through
 the port's hand-written kernels (``kernels/extend_attention``,
 ``kernels/decode_attention``) on the card, and their plain versions on the
-CPU.
+CPU.  Cross-attention (whisper's decoder, llama-vision's image layers)
+attends over context K/V projected once per document; like ``repro``'s,
+it is the blocked softmax without a mask, on every path.
 
 Caches are updated **in place** here (the JAX reference returns new
 arrays): ``seq_update`` and ``write_kv`` write into the cache tensors they
@@ -149,6 +151,33 @@ def self_attention(p: AttnParams, x, positions, *, causal: bool, theta: float,
     out = blocked_attention(q, k_att, v_att, positions, positions, causal=causal,
                             block=block)
     return proj_out(out, p.wo), (k, v)
+
+
+def cross_attention(p: AttnParams, x, ctx_kv, *, block: int = 512):
+    """Attend x → precomputed context K/V (no RoPE, no mask).  As in
+    ``repro``, the context is one KV block unless its length divides
+    ``block`` (1500 audio frames and 1601 image patches both run as one)."""
+    k, v = ctx_kv
+    b, s = x.shape[:2]
+    q = proj_heads(x, p.wq)
+    if p.q_norm is not None:
+        q = rms_norm(q, p.q_norm)
+    t = k.shape[1]
+    pos_q = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    pos_k = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+    blk = block if t % block == 0 else t
+    out = blocked_attention(q, k, v, pos_q, pos_k, causal=False, block=blk)
+    return proj_out(out, p.wo)
+
+
+def project_context(p: AttnParams, ctx):
+    """Cross-attention K/V of the context embeddings ``ctx`` (B, T, d),
+    computed once per document and cached as the ``ck``/``cv`` leaves."""
+    k = proj_heads(ctx, p.wk)
+    v = proj_heads(ctx, p.wv)
+    if p.k_norm is not None:
+        k = rms_norm(k, p.k_norm)
+    return k, v
 
 
 def decode_attention(p: AttnParams, x, cache_k, cache_v, pos, *, theta: float):

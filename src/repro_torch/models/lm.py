@@ -17,11 +17,18 @@ they are given, and an SSD layer computes its new state from the cache
 views and then copies it over them; both return the same tree (JAX returns
 new arrays).
 
-Ported mixers: GQA attention (with ``repro``'s ``expand_kv`` prefill), MLA
-and the Mamba-2 SSD mixer (pure SSD stacks and hybrid SSD + attention
+Mixers: GQA attention (with ``repro``'s ``expand_kv`` prefill), MLA and
+the Mamba-2 SSD mixer (pure SSD stacks and hybrid SSD + attention
 periods); feed-forward layers: dense and routed MoE, SwiGLU or
-squared-ReLU, SiLU and GELU.  Cross-attention waits for ROADMAP.md §1
-item 8c.
+squared-ReLU, SiLU and GELU.  Cross-attention layers (``encdec``:
+whisper, every decoder layer; ``vlm``: llama-vision, one layer in five)
+attend over a context made once, at the cold prefill: an encoder of
+bidirectional attention layers over ``batch["enc_feats"]``, or
+``vision_proj`` over ``batch["image_embeds"]`` (both frontends are
+``repro``'s stubs: precomputed features).  Each cross layer caches its
+context K/V as the constant leaves ``ck``/``cv`` ``(L, B, T_ctx, KV,
+hd)``; extend and decode read them from the cache and never run the
+context again.
 """
 from __future__ import annotations
 
@@ -37,8 +44,8 @@ from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssd as ssd_mod
-from .common import (CACHE_STATE_KEYS, cache_leaf_key, rms_norm,
-                     tree_map_with_path)
+from .common import (CACHE_CONST_KEYS, CACHE_STATE_KEYS, cache_leaf_key, dense,
+                     rms_norm, tree_map_with_path)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -187,8 +194,12 @@ def _moe_specs(cfg: ArchConfig) -> dict:
 
 def _layer_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     d = cfg.d_model
-    mixer = {"attn": _attn_specs, "mla": _mla_specs, "ssd": _ssd_specs}[spec.mixer]
+    mixer = {"attn": _attn_specs, "attn_bidir": _attn_specs, "mla": _mla_specs,
+             "ssd": _ssd_specs}[spec.mixer]
     out: dict = {"ln1": ParamSpec((d,), "ones"), "mixer": mixer(cfg)}
+    if spec.cross:
+        out["cross_ln"] = ParamSpec((d,), "ones")
+        out["cross"] = _attn_specs(cfg)
     if spec.mlp != "none":
         out["ln2"] = ParamSpec((d,), "ones")
         out["mlp"] = _moe_specs(cfg) if spec.mlp == "moe" else _dense_mlp_specs(cfg, cfg.d_ff)
@@ -200,15 +211,12 @@ def _stack_specs(tree, n: int):
         lambda _, s: ParamSpec((n,) + s.shape, s.init, s.scale), tree)
 
 
-def _unsupported(cfg: ArchConfig) -> bool:
-    return bool(cfg.encoder_layers or cfg.cross_attn_every or cfg.vision_context)
+#: the encoder's layer (whisper): bidirectional self-attention, dense MLP
+ENCODER_LAYER = LayerSpec("attn_bidir", "dense")
 
 
 def param_specs(cfg: ArchConfig) -> dict:
     """Spec tree of the config's stack (JAX key names)."""
-    if _unsupported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention not ported yet (ROADMAP.md §1 item 8c)")
     d = cfg.d_model
     specs: dict = {
         "embed": ParamSpec((cfg.vocab_size, d)),
@@ -221,6 +229,14 @@ def param_specs(cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, cfg.vocab_size))
+    if cfg.encoder_layers:
+        specs["encoder"] = {
+            "layers": _stack_specs({"p0": _layer_specs(cfg, ENCODER_LAYER)},
+                                   cfg.encoder_layers),
+            "final_norm": ParamSpec((d,), "ones"),
+        }
+    if cfg.vision_context:
+        specs["vision_proj"] = ParamSpec((d, d))
     return specs
 
 
@@ -278,9 +294,17 @@ def _moe_params(p: dict) -> moe_mod.MoEParams:
 CACHE_LEAVES = {"attn": ("k", "v"), "mla": ("c_kv", "k_rope"), "ssd": ("conv", "ssm")}
 
 
+def _cache_names(spec: LayerSpec) -> list:
+    """A layer's cache leaves in the order ``jax.tree_util`` flattens them
+    (sorted keys): a cross layer's ``ck``/``cv`` come before ``k``/``v``,
+    so snapshots and wire frames list the leaves as ``repro``'s do."""
+    return sorted(CACHE_LEAVES[spec.mixer] + (CACHE_CONST_KEYS if spec.cross else ()))
+
+
 class LM:
     """Decoder LM for one ArchConfig of attention, MLA or SSD layers with
-    dense or MoE feed-forward layers.
+    dense or MoE feed-forward layers, plus the encoder or vision context of
+    its cross-attention layers.
 
     ``device`` is where :meth:`init` allocates by default; every forward
     entry point runs on the device of the tokens it is given.
@@ -288,7 +312,7 @@ class LM:
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         self.cfg = cfg
-        self.specs = param_specs(cfg)          # raises for unported layers
+        self.specs = param_specs(cfg)
         self.segments = build_segments(cfg)
         self.device = torch.device(device)
         self.compute_dtype = DTYPES[cfg.compute_dtype]
@@ -329,19 +353,55 @@ class LM:
             y = moe_mod.dense_ffn(p["mlp"], hn, cfg.activation)
         return x + y.to(x.dtype)
 
+    def _cross(self, p, x, ctx_kv):
+        """The cross-attention sublayer over context K/V ``ctx_kv``."""
+        hn = rms_norm(x.to(self.compute_dtype), p["cross_ln"], self.cfg.norm_eps)
+        xc = attn.cross_attention(_attn_params(p["cross"]), hn, ctx_kv)
+        return x + xc.to(x.dtype)
+
     def _layers(self, params, caches=None):
         """Yield (segment index, period slot j, layer i, spec, layer params,
-        layer cache views or None) in execution order; a layer's cache views
-        are its mixer's leaves (:data:`CACHE_LEAVES`) in order."""
+        layer cache views or None, context K/V views or None) in execution
+        order; a layer's cache views are its mixer's leaves
+        (:data:`CACHE_LEAVES`) in order, a cross layer's context its
+        ``(ck, cv)``."""
         for s, ((period, n), seg_params) in enumerate(
                 zip(self.segments, params["segments"])):
             for i in range(n):
                 for j, spec in enumerate(period):
-                    cache = None
+                    cache = ctx = None
                     if caches is not None:
                         c = caches[s][f"p{j}"]
                         cache = tuple(c[name][i] for name in CACHE_LEAVES[spec.mixer])
-                    yield s, j, i, spec, _layer_params(seg_params[f"p{j}"], i), cache
+                        if spec.cross:
+                            ctx = (c["ck"][i], c["cv"][i])
+                    yield (s, j, i, spec, _layer_params(seg_params[f"p{j}"], i),
+                           cache, ctx)
+
+    def _context(self, params, batch, device):
+        """The context the cross layers attend to, (B, T_ctx, d) on
+        ``device``: the encoder over ``batch["enc_feats"]`` (bidirectional
+        self-attention with RoPE over the frames, then the encoder's final
+        norm), or ``vision_proj`` over ``batch["image_embeds"]``; None for
+        a stack without cross layers."""
+        cfg = self.cfg
+        if cfg.encoder_layers:
+            enc = params["encoder"]
+            x = torch.as_tensor(batch["enc_feats"], device=device).to(self.compute_dtype)
+            b, t = x.shape[:2]
+            pos = torch.arange(t, device=device).expand(b, t)
+            for i in range(cfg.encoder_layers):
+                p = _layer_params(enc["layers"]["p0"], i)
+                h = rms_norm(x, p["ln1"], cfg.norm_eps)
+                mixed, _ = attn.self_attention(
+                    _attn_params(p["mixer"]), h, pos, causal=False,
+                    theta=cfg.rope_theta, block=cfg.attn_block, expand_kv=cfg.expand_kv)
+                x = self._mlp(ENCODER_LAYER, p, x + mixed.to(x.dtype))
+            return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+        if cfg.vision_context:
+            x = torch.as_tensor(batch["image_embeds"], device=device)
+            return dense(x.to(self.compute_dtype), params["vision_proj"])
+        return None
 
     def logits(self, params, hidden):
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
@@ -354,14 +414,18 @@ class LM:
 
     # -- serving ------------------------------------------------------------
     def prefill(self, params, batch):
-        """Returns (last-position logits (B,V), cache tree)."""
+        """Returns (last-position logits (B,V), cache tree).  ``batch``
+        holds ``tokens`` and, for a stack with cross layers, the context's
+        features (``enc_feats`` or ``image_embeds``, numpy arrays or
+        tensors, moved onto the tokens' device)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self._embed(params, tokens)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
+        ctx = self._context(params, batch, tokens.device)
         kv: dict = {}
-        for seg, j, _, spec, p, _ in self._layers(params):
+        for seg, j, _, spec, p, _, _ in self._layers(params):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
             if spec.mixer == "ssd":
                 mixed, leaves = ssd_mod.ssd_block(
@@ -376,11 +440,19 @@ class LM:
                     _attn_params(p["mixer"]), h, positions, causal=True,
                     theta=cfg.rope_theta, block=cfg.attn_block,
                     expand_kv=cfg.expand_kv)
-            x = self._mlp(spec, p, x + mixed.to(x.dtype))
+            x = x + mixed.to(x.dtype)
+            leaves = dict(zip(CACHE_LEAVES[spec.mixer], leaves))
+            if spec.cross:
+                # projected once and cached (repro projects the same
+                # values a second time for the cache)
+                ctx_kv = attn.project_context(_attn_params(p["cross"]), ctx)
+                leaves.update(zip(CACHE_CONST_KEYS, ctx_kv))
+                x = self._cross(p, x, ctx_kv)
+            x = self._mlp(spec, p, x)
             kv.setdefault((seg, j), []).append(leaves)
         caches = [
-            {f"p{j}": {name: torch.stack([lv[a] for lv in kv[(seg, j)]])
-                       for a, name in enumerate(CACHE_LEAVES[spec.mixer])}
+            {f"p{j}": {name: torch.stack([lv[name] for lv in kv[(seg, j)]])
+                       for name in _cache_names(spec)}
              for j, spec in enumerate(period)}
             for seg, (period, _) in enumerate(self.segments)]
         return self._final_logits(params, x), caches
@@ -402,7 +474,7 @@ class LM:
         start = torch.as_tensor(start, dtype=torch.int32, device=tokens.device)
         x = self._embed(params, tokens)
         positions = (start + torch.arange(nb, device=tokens.device)).expand(b, nb)
-        for _, _, _, spec, p, (c0, c1) in self._layers(params, caches):
+        for _, _, _, spec, p, (c0, c1), ctx_kv in self._layers(params, caches):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
             if spec.mixer == "ssd":
                 mixed, state = ssd_mod.ssd_block(
@@ -418,7 +490,10 @@ class LM:
                 mixed, _ = attn.extend_attention_cached(
                     _attn_params(p["mixer"]), h, c0, c1, positions, start,
                     theta=cfg.rope_theta)
-            x = self._mlp(spec, p, x + mixed.to(x.dtype))
+            x = x + mixed.to(x.dtype)
+            if spec.cross:
+                x = self._cross(p, x, ctx_kv)
+            x = self._mlp(spec, p, x)
         return self._final_logits(params, x), caches
 
     def prefill_extend_many(self, params, caches, tokens, start, n_chunks: int):
@@ -466,7 +541,7 @@ class LM:
         route), which reduces over the whole padded capacity."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        for _, _, _, spec, p, (c0, c1) in self._layers(params, caches):
+        for _, _, _, spec, p, (c0, c1), ctx_kv in self._layers(params, caches):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
             if spec.mixer == "ssd":
                 mixed, state = ssd_mod.ssd_decode(
@@ -481,6 +556,9 @@ class LM:
             else:
                 mixed, _ = attn.decode_attention(
                     _attn_params(p["mixer"]), h, c0, c1, pos, theta=cfg.rope_theta)
-            x = self._mlp(spec, p, x + mixed.to(x.dtype))
+            x = x + mixed.to(x.dtype)
+            if spec.cross:
+                x = self._cross(p, x, ctx_kv)
+            x = self._mlp(spec, p, x)
         hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self.logits(params, hidden)[:, 0], caches

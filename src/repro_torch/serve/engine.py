@@ -16,6 +16,13 @@ records its store insertions on a :class:`PendingBuild`, landed later by
 :meth:`PrefixCacheBuilder.finalize_build`.  Reused int8 segments come
 back to model precision through the ``quant_kv`` kernel
 (:meth:`PrefixCacheBuilder._segment_caches`).
+
+A cross-attention stack (whisper, llama-vision) conditions its KV on
+**extras**, the context features a cold prefill at position 0 consumes
+(``enc_feats`` / ``image_embeds``); every later chunk reads the context
+K/V from the cache.  The front ends keep two copies: host arrays, the
+bytes the document key hashes, and tensors on the device, placed once and
+handed to every build.
 """
 from __future__ import annotations
 
@@ -82,6 +89,18 @@ class PendingBuild:
     puts: list = field(default_factory=list)
     pin_token: tuple = ()
     finalized: bool = False
+
+
+def host_extras(extras: Optional[dict]) -> dict:
+    """The extras as host numpy arrays (the document's identity, hashed
+    by ``doc_key``): tensors on a card are copied off it here, once."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in (extras or {}).items()}
+
+
+def device_extras(extras: Optional[dict], device) -> dict:
+    """The extras as tensors on ``device`` (the model's batch entries)."""
+    return {k: torch.as_tensor(v, device=device) for k, v in (extras or {}).items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -181,6 +200,7 @@ class PrefixCacheBuilder:
 
     def build_prefix(self, doc: np.ndarray, length: int, *,
                      doc_id: str = DEFAULT_DOC,
+                     extras: Optional[dict] = None,
                      stats: Optional[ServeStats] = None,
                      materialize: bool = True,
                      requester: Optional[int] = None,
@@ -193,7 +213,8 @@ class PrefixCacheBuilder:
         through ``prefill_extend`` / ``prefill_extend_many`` at this
         capacity; each chunk is materialized for future requests.
         Segments the plan references are pinned for the duration so chunk
-        puts can never evict them mid-execution.
+        puts can never evict them mid-execution.  ``extras`` (device
+        tensors, :func:`device_extras`) join the batch of a cold prefill.
 
         ``defer=True`` is the dispatch phase of an async build: the device
         work is launched and not waited for (``prefill_s`` counts dispatch
@@ -204,6 +225,7 @@ class PrefixCacheBuilder:
         insertion.  Returns ``(caches, plan, pending)``.
         """
         stats = stats if stats is not None else ServeStats()
+        extras = extras or {}
         plan = self.plan_prefix(length, doc_id=doc_id, stats=stats)
         steps = sorted(plan.steps, key=lambda s: s.rng.lo)  # DAG path is ordered
         cap = bucket_len(max(length, capacity or 0), self.seq_bucket)
@@ -247,7 +269,7 @@ class PrefixCacheBuilder:
                             caches = insert_cache(caches, seg_caches, st.rng.lo)
                         stats.tokens_reused += st.rng.size
                     else:
-                        caches = self._fill_gap(doc, st.rng, caches, cap,
+                        caches = self._fill_gap(doc, st.rng, caches, cap, extras,
                                                 stats=stats, sink=sink)
         except BaseException:
             # the sync path's context manager releases its pins on any
@@ -286,7 +308,8 @@ class PrefixCacheBuilder:
         pending.puts = []
         self.store.unpin(pending.pin_token)
 
-    def _fill_gap(self, doc, rng: Range, caches, cap: int, *, stats, sink):
+    def _fill_gap(self, doc, rng: Range, caches, cap: int, extras, *,
+                  stats, sink):
         """Prefill one uncovered plan step [rng.lo, rng.hi) into ``caches``.
 
         Full chunks run as one ``prefill_extend_many`` call; at most one
@@ -299,7 +322,7 @@ class PrefixCacheBuilder:
             first = min(self.chunk, hi)
             self._dispatch("prefill", (first,))
             _, caches = self.model.prefill(
-                self.params, {"tokens": self._tokens(doc[None, :first])})
+                self.params, {"tokens": self._tokens(doc[None, :first]), **extras})
             if sink is not None:
                 sink(Range(0, first), slice_cache(caches, 0, first))
             stats.tokens_computed += first
@@ -339,6 +362,7 @@ class PrefixCacheBuilder:
 
     def prefix_with_logits(self, doc: np.ndarray, prefix_len: int, *,
                            doc_id: str = DEFAULT_DOC,
+                           extras: Optional[dict] = None,
                            stats: Optional[ServeStats] = None,
                            requester: Optional[int] = None,
                            capacity: Optional[int] = None,
@@ -354,11 +378,12 @@ class PrefixCacheBuilder:
         dispatch phase of an async prefill ticket (see :meth:`build_prefix`).
         """
         stats = stats if stats is not None else ServeStats()
+        extras = extras or {}
         if prefix_len < 2:
             t0 = time.perf_counter()
             self._dispatch("prefill", (prefix_len,))
             logits, caches = self.model.prefill(
-                self.params, {"tokens": self._tokens(doc[None, :prefix_len])})
+                self.params, {"tokens": self._tokens(doc[None, :prefix_len]), **extras})
             if not defer:
                 _sync(self.device)
             stats.prefill_s += time.perf_counter() - t0
@@ -369,7 +394,7 @@ class PrefixCacheBuilder:
                     doc_id=doc_id, requester=requester)
             return logits, caches, plan
         built = self.build_prefix(
-            doc, prefix_len - 1, doc_id=doc_id, stats=stats,
+            doc, prefix_len - 1, doc_id=doc_id, extras=extras, stats=stats,
             materialize=True, requester=requester,
             capacity=max(prefix_len, capacity or 0), defer=defer)
         caches, plan = built[0], built[1]
@@ -407,6 +432,8 @@ class ServeEngine:
     ``store``/``doc_id`` default to a private store; pass a shared
     :class:`SegmentStore` and a stable ``doc_id`` to share segments.
     ``device`` (default: the model's) is where tokens and caches live.
+    ``extras`` are a cross-attention stack's context features (numpy
+    arrays or tensors), placed on the device once.
     """
 
     def __init__(
@@ -415,6 +442,7 @@ class ServeEngine:
         params,
         doc_tokens: np.ndarray,
         *,
+        extras: Optional[dict] = None,
         chunk_tokens: int = 64,
         seq_bucket: int = 64,
         cost_model: Optional[CostModel] = None,
@@ -451,6 +479,8 @@ class ServeEngine:
         self.device = self.builder.device
         self.cost = self.builder.cost
         self.stats = ServeStats()
+        self.extras = host_extras(extras)
+        self.context = device_extras(extras, self.device)
 
     @property
     def chunk(self) -> int:
@@ -463,8 +493,8 @@ class ServeEngine:
 
     def build_prefix(self, length: int, *, materialize: bool = True):
         return self.builder.build_prefix(
-            self.doc, length, doc_id=self.doc_id, stats=self.stats,
-            materialize=materialize)
+            self.doc, length, doc_id=self.doc_id, extras=self.context,
+            stats=self.stats, materialize=materialize)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -477,8 +507,8 @@ class ServeEngine:
         """
         self.stats.requests += 1
         logits, caches, plan = self.builder.prefix_with_logits(
-            self.doc, prefix_len, doc_id=self.doc_id, stats=self.stats,
-            capacity=prefix_len + n_new)
+            self.doc, prefix_len, doc_id=self.doc_id, extras=self.context,
+            stats=self.stats, capacity=prefix_len + n_new)
         # a no-op except on the short-prefix prefill path
         caches = pad_cache_to(
             caches, bucket_len(prefix_len + n_new, self.builder.seq_bucket))
@@ -516,7 +546,7 @@ class ServeEngine:
 
         new_doc = np.asarray(new_tokens, np.int32)
         old_id = self.doc_id
-        new_id = doc_key(new_doc)
+        new_id = doc_key(new_doc, self.extras)
         eplan = plan_edit(self.doc, new_doc, self.store.index(old_id),
                           self.cost, self.store.segment_bytes(old_id))
         if new_id != old_id:
@@ -530,7 +560,8 @@ class ServeEngine:
     def baseline_build(self, length: int):
         """No-reuse reference: prefill everything from scratch.  Returns
         (caches, seconds)."""
-        batch = {"tokens": self.builder._tokens(self.doc[None, :length])}
+        batch = {"tokens": self.builder._tokens(self.doc[None, :length]),
+                 **self.context}
         t0 = time.perf_counter()
         _, caches = self.builder.prefill_raw(batch)
         _sync(self.device)

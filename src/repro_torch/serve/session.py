@@ -55,7 +55,8 @@ from repro_torch.core.optimizer import Plan
 from repro_torch.kernels.common import bucket_len
 from repro_torch.models.common import tree_map_with_path
 
-from .engine import PendingBuild, PrefixCacheBuilder, ServeStats
+from .engine import (PendingBuild, PrefixCacheBuilder, ServeStats, device_extras,
+                     host_extras)
 from .kv_cache import (SEQ_KEYS, SegmentStore, _leaf_key, cache_len,
                        cache_nbytes, pad_cache_to, slice_cache)
 
@@ -149,7 +150,10 @@ class Session:
     sid: int
     doc_id: str
     doc: np.ndarray
+    #: the context features as host arrays: the document's identity
     extras: dict = field(default_factory=dict)
+    #: the same on the manager's device: what a cold prefill consumes
+    context: dict = field(default_factory=dict)
     stats: ServeStats = field(default_factory=ServeStats)
     # in-flight request state
     caches: Any = None
@@ -341,15 +345,19 @@ class SessionManager:
     def add_session(self, doc_tokens: np.ndarray, *,
                     doc_id: Optional[str] = None,
                     extras: Optional[dict] = None) -> int:
-        """Open a session over ``doc_tokens``.  ``extras`` are part of the
-        document's identity (:func:`doc_key`); the port's models take no
-        cross-attention context, so they condition nothing else."""
+        """Open a session over ``doc_tokens``.  ``extras`` (a cross-attention
+        stack's context features, numpy arrays or tensors) condition the
+        session's prefills and are part of the document's identity
+        (:func:`doc_key`): same tokens with other extras share no segment.
+        They are copied to the host (for the key) and to the device (for
+        the model) here, once."""
         doc = np.asarray(doc_tokens, np.int32)
         sid = self._next_sid
         self._next_sid += 1
+        host = host_extras(extras)
         self.sessions[sid] = Session(
-            sid=sid, doc_id=doc_id if doc_id is not None else doc_key(doc, extras),
-            doc=doc, extras=extras or {})
+            sid=sid, doc_id=doc_id if doc_id is not None else doc_key(doc, host),
+            doc=doc, extras=host, context=device_extras(extras, self.device))
         return sid
 
     def close_session(self, sid: int) -> None:
@@ -394,7 +402,7 @@ class SessionManager:
         self.store.prefetch(s.doc_id, upto=prefix_len)
         if self.async_prefill:
             logits, caches, plan, pending = self.builder.prefix_with_logits(
-                s.doc, prefix_len, doc_id=s.doc_id, stats=s.stats,
+                s.doc, prefix_len, doc_id=s.doc_id, extras=s.context, stats=s.stats,
                 requester=sid, capacity=prefix_len + n_new, defer=True)
             event = None
             if self.device.type == "cuda":
@@ -407,7 +415,7 @@ class SessionManager:
             self._tickets.append(s.ticket)
         else:
             logits, caches, plan = self.builder.prefix_with_logits(
-                s.doc, prefix_len, doc_id=s.doc_id, stats=s.stats,
+                s.doc, prefix_len, doc_id=s.doc_id, extras=s.context, stats=s.stats,
                 requester=sid, capacity=prefix_len + n_new)
             # the monolithic loop: every decoding session stalls until this
             # build has completed on the device

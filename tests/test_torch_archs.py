@@ -9,7 +9,8 @@ tokens and documents from ``np.random.default_rng``.  Both sides run fp32
 on the CPU (``repro``'s blocked paths, the port's plain versions), so what
 differs is the reduction order: logits are held to ``LOGIT_ATOL``
 (measured on the CPU: at most 3e-7 over prefill, extend and decode), greedy
-tokens, plans and segment ids must be equal.
+tokens, plans and segment ids must be equal.  And every config ``repro``
+registers builds in the port with ``repro``'s parameter count.
 """
 import dataclasses
 
@@ -21,6 +22,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduced as jax_reduced  # noqa: E402
 from repro.models.lm import LM as JaxLM  # noqa: E402
@@ -42,7 +44,22 @@ LAYERS = {"phi3-medium-14b": ["attn/dense"],
 
 def test_registry_holds_the_ported_archs():
     assert set(LAYERS) | {"deepseek-67b", "deepseek-v2-236b", "nemotron-4-340b",
-                          "mamba2-130m", "jamba-v0.1-52b"} == set(ARCHS)
+                          "mamba2-130m", "jamba-v0.1-52b", "whisper-large-v3",
+                          "llama-3.2-vision-11b"} == set(ARCHS)
+
+
+@pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
+def test_every_reference_config_builds(arch):
+    """Every config ``repro`` registers has a copy here whose full-size
+    stack builds (spec trees only, no allocation) with ``repro``'s
+    parameter count."""
+    from repro.models.common import param_count
+    from repro.models.lm import param_specs as jax_param_specs
+    from repro_torch.models.common import tree_leaves
+
+    model = LM(get_config(arch), device="cpu")
+    n = sum(int(np.prod(s.shape)) for s in tree_leaves(model.specs))
+    assert n == param_count(jax_param_specs(jax_get_config(arch)))
 
 
 @pytest.mark.parametrize("arch", list(LAYERS))

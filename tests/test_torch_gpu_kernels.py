@@ -74,7 +74,8 @@ def _randn(shape, dtype, device, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 2, 8), (64, 4, 1), (192, 2, 12)])
+@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 2, 8), (64, 4, 1), (192, 2, 12),
+                                     (64, 20, 1)])
 @pytest.mark.parametrize("t_real", [32, 200, 256])
 def test_extend_kernel_matches_plain(hopper, dtype, hd, kv, g, t_real):
     b, nb, cap = 2, 32, 256
@@ -235,7 +236,8 @@ def test_extend_kernel_raises_on_an_unbuilt_pair(hopper, hqk, hv):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 8, 8), (32, 1, 16), (192, 2, 12)])
+@pytest.mark.parametrize("hd,kv,g", [(16, 2, 2), (128, 8, 8), (32, 1, 16), (192, 2, 12),
+                                     (64, 20, 1)])
 def test_decode_kernel_matches_plain(hopper, dtype, hd, kv, g):
     b, t = 4, 600
     q = _randn((b, 1, kv * g, hd), dtype, hopper, 4)

@@ -135,5 +135,8 @@ def test_init_layout_and_unported_layers():
     np.testing.assert_allclose(float(params["embed"].std()), 0.02, rtol=0.1)
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        param_specs(dataclasses.replace(cfg, encoder_layers=2))
+    # no layer kind is left unported: an encoder and a vision context add
+    # their parameters (tests/test_torch_cross_serve.py runs them)
+    specs = param_specs(dataclasses.replace(cfg, encoder_layers=2, vision_context=16))
+    assert specs["encoder"]["layers"]["p0"]["mixer"]["wq"].shape == (2, 64, 4, 16)
+    assert specs["vision_proj"].shape == (64, 64)
