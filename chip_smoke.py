@@ -79,7 +79,13 @@ printed) and runs:
      through ``SessionManager``, and two sessions on the same tokens with
      other features must share no segment; the card must launch the
      extend kernel, and the decode kernel where the stack has attention
-     layers;
+     layers; then reduced training card vs CPU (fp32): 3 steps of
+     ``make_train_step`` on batches of 4 x 64 from ``lm_pipeline`` from the
+     same parameters for ``deepseek-67b``, ``deepseek-v2-236b`` (AdamW and
+     Adafactor), ``mamba2-130m`` and ``whisper-large-v3``: the loss per step
+     within ``TRAIN_LOSS_ATOL``, the parameters after it within
+     ``TRAIN_PARAM_NORMWISE`` of the update, and no extend or decode
+     launch;
   4. the main path at full width: ``deepseek-67b`` widths, bf16, depth cut
      from 95 to 24 layers so the weights fit one 80 GB card, a 4096-token
      document, chunk 128, requests with prefixes 2048, 4096, 3072 (16 new
@@ -184,6 +190,20 @@ printed) and runs:
      each then profiled (a decode step, an extend, whisper's cold prefill)
      and split into the attention kernel, the cross-attention sublayers,
      the encoder, the dense FFN layers (each timed alone) and the rest.
+ 15. training at full width, after phase 14's model is freed, through
+     ``train_loop`` on ``lm_pipeline``'s batches of 8 x 1024 (6 steps,
+     ``TRAIN_LR``'s peak after 2 warmup steps): (a) ``deepseek-67b`` at its
+     published widths, depth cut from 95 to 2 layers (3.06 B parameters,
+     bf16, AdamW, remat full, 8 microbatches); (b) ``mamba2-130m`` at full
+     depth (fp32 parameters, AdamW, 4 microbatches), checkpointed every 4
+     steps and at the end through ``AsyncCheckpointer``: the last
+     checkpoint restores bitwise and a step from it gives bitwise the
+     in-memory state's loss.  Each prints its loss, grad norm and time per
+     step (CUDA events, the first step apart), tokens/s, ``train_mfu``
+     with its formula, peak memory and retries (must be 0), needs a finite
+     loss that falls and no extend or decode launch, then profiles one
+     more step (dense products, the optimizer, idle share; for (a) the
+     blocked attention timed alone).
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -1771,6 +1791,101 @@ def reduced_grouped_moe(dev, cfg) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3: reduced training, card vs CPU
+# ---------------------------------------------------------------------------
+
+#: phase 3's training runs: 3 steps on batches of 4 x 64 from ``lm_pipeline``
+TRAIN_REDUCED = dict(steps=3, batch=4, seq=64, lr=1e-3)
+#: the card's loss per step against the CPU's (fp32, TF32 off: cuBLAS and
+#: the CPU sum in other orders; on the CPU the port's loss stays within
+#: 1e-6 of repro's)
+TRAIN_LOSS_ATOL = 1e-4
+#: the card's parameters after the last step against the CPU's, per leaf:
+#: ‖card − CPU‖ over ‖CPU − initial‖, the size of the update.  An AdamW or
+#: Adafactor step normalises each gradient, so an element whose gradient
+#: is within rounding of 0 moves by another fraction of lr on the card
+#: (the CPU against repro after one step: 4.7e-4)
+TRAIN_PARAM_NORMWISE = 1e-2
+
+
+def kernel_launches() -> tuple[int, int]:
+    """The extend and decode kernels' launch counters."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.extend_attention import kernel as ek
+
+    return ek.KERNEL.launches, dk.KERNEL.launches
+
+
+def train_batches(cfg, batch: int, seq: int, steps: int, dev) -> list:
+    """``steps`` batches of ``lm_pipeline`` (2 shards, seed 0) on ``dev``,
+    with a cross stack's stub context (0.1 N(0, 1) from the seed, one
+    feature set per row)."""
+    from repro_torch.data.pipeline import lm_pipeline
+
+    pipe = lm_pipeline(cfg.vocab_size, batch=batch, seq=seq, n_shards=2, seed=0)
+    try:
+        host = [next(pipe) for _ in range(steps)]
+    finally:
+        pipe.close()
+    ctx = {k: np.repeat(v, batch, axis=0) for k, v in context_features(cfg).items()}
+    return [{k: torch.from_numpy(v).to(dev) for k, v in {**b, **ctx}.items()}
+            for b in host]
+
+
+def reduced_training(dev, arch: str, opt_name: str = "") -> None:
+    """``TRAIN_REDUCED``'s steps of ``make_train_step`` on reduced ``arch``
+    (fp32) on the card and on the CPU from the same parameters: loss per
+    step within ``TRAIN_LOSS_ATOL``, parameters after the last step within
+    ``TRAIN_PARAM_NORMWISE``, and no extend or decode kernel launched."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.common import tree_items_sorted, tree_map_with_path
+    from repro_torch.models.lm import LM
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+
+    cfg = reduced(get_config(arch))
+    opt_name = opt_name or cfg.optimizer
+    t = TRAIN_REDUCED
+    init = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cpu", dev):
+        model = LM(cfg, device=device)
+        params = tree_map_with_path(lambda _, x: x.clone().to(device), init)
+        opt = make_optimizer(opt_name)
+        state = opt.init(params)
+        step, _ = make_train_step(model, opt, microbatches=1,
+                                  schedule=warmup_cosine(t["lr"], 1, t["steps"]))
+        before = kernel_launches()
+        losses = []
+        for i, batch in enumerate(train_batches(cfg, t["batch"], t["seq"], t["steps"], device)):
+            params, state, m = step(params, state, batch, i)
+            losses.append(float(m["loss"]))
+        check(kernel_launches() == before,
+              f"{arch} training launched an attention kernel: {before} -> {kernel_launches()}")
+        runs[str(device)] = (losses, params)
+    (cpu_losses, cpu_params), (gpu_losses, gpu_params) = runs["cpu"], runs[str(dev)]
+    loss_err = max(abs(a - b) for a, b in zip(cpu_losses, gpu_losses))
+    worst, where = 0.0, ""
+    for (path, c), g, i in zip(tree_items_sorted(cpu_params),
+                               [x for _, x in tree_items_sorted(gpu_params)],
+                               [x for _, x in tree_items_sorted(init)]):
+        moved = float(torch.linalg.vector_norm((c - i).double()))
+        err = float(torch.linalg.vector_norm((g.cpu() - c).double())) / max(moved, 1e-30)
+        if err > worst:
+            worst, where = err, "/".join(map(str, path))
+    print(f"    training {arch} ({opt_name}, {t['steps']} steps of {t['batch']} x {t['seq']}): "
+          f"loss card {[round(x, 6) for x in gpu_losses]} vs CPU "
+          f"{[round(x, 6) for x in cpu_losses]}, max |diff| {loss_err:.2e} (atol "
+          f"{TRAIN_LOSS_ATOL:g}); parameters after step {t['steps']}: worst leaf "
+          f"{worst:.2e} of its update ({where}; limit {TRAIN_PARAM_NORMWISE:g}); "
+          f"no extend or decode launch")
+    check(all(np.isfinite(cpu_losses + gpu_losses)), f"{arch}: non-finite training loss")
+    check(loss_err <= TRAIN_LOSS_ATOL, f"{arch}: training loss card vs CPU {loss_err:.3e}")
+    check(worst <= TRAIN_PARAM_NORMWISE,
+          f"{arch}: parameters after training, card vs CPU: {worst:.3e} at {where}")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
@@ -2454,6 +2569,290 @@ def cross_where_time_goes(eng, dev, *, decode_at: int, extend_at: int, n_ext: in
               f"{dense_all:.2f} ms + the rest (self-attention projections, norms, "
               f"embedding, head) {rest:.2f} ms; one layer's parts alone on {n} tokens: "
               f"{each}")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training at full width
+# ---------------------------------------------------------------------------
+
+#: phase 15 (a)'s depth: deepseek-67b cut from 95 layers to 2 (3.06 B
+#: parameters: bf16 weights, fp32 AdamW moments and gradient sum fit one
+#: 80 GB card)
+TRAIN_LAYERS = 2
+#: phase 15's runs: steps of batch 8 x seq 1024 from ``lm_pipeline``, the
+#: peak learning rate after a warmup of 2 steps per run: at d 8192 an AdamW
+#: step of 1e-3 moves a logit by up to d x lr (the loss rose from 13.2 to 46.6
+#: in one step on the card), at mamba2-130m's d 768 it is safe
+TRAIN_FULL = dict(steps=6, batch=8, seq=1024, warmup=2)
+TRAIN_LR = {"deepseek-67b": 2e-5, "mamba2-130m": 1e-3}
+#: the weights each token's forward multiplies (the embedding is a gather
+#: unless tied to the head)
+MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in", "w_out",
+                 "lm_head")
+#: kernel names of the dense products (cuBLAS / CUTLASS) in a trace
+GEMM_NAMES = ("gemm", "Gemm", "xmma", "cutlass", "sm90_", "nvjet")
+
+
+def model_flops(model, params, tokens: int, seq: int) -> tuple[float, str]:
+    """Model FLOPs of one training step over ``tokens`` tokens of ``seq``:
+    (the count, its formula).  Products 6·T·N (N the weights in products:
+    forward 2, backward 4), causal attention 6·T·S·H·hd per attention layer
+    (QKᵀ and PV over S/2 keys on average, times 3), the SSD scan's chunked
+    products as computed, 3·T·h·(2·l·(n + p) + 4·p·n) per SSD layer.
+    Remat's recomputation is not counted."""
+    from repro_torch.models.common import tree_items_sorted
+
+    cfg = model.cfg
+    keys = MATMUL_LEAVES + (("embed",) if cfg.tie_embeddings else ())
+    n = sum(x.numel() for path, x in tree_items_sorted(params) if path[-1] in keys)
+    kinds = [spec.mixer for period, reps in model.segments for spec in period
+             for _ in range(reps)]
+    n_attn = sum(k == "attn" for k in kinds)
+    n_ssd = sum(k == "ssd" for k in kinds)
+    flops = 6.0 * tokens * n + 6.0 * tokens * seq * cfg.n_heads * cfg.head_dim * n_attn
+    formula = f"6·T·N ({n / 1e9:.4f} B weights in products)"
+    if n_attn:
+        formula += f" + 6·T·S·H·hd·{n_attn} attention layers"
+    if n_ssd:
+        s = cfg.ssm
+        h, l = s.n_heads(cfg.d_model), min(s.chunk, seq)
+        flops += 3.0 * tokens * h * (2 * l * (s.d_state + s.head_dim)
+                                     + 4 * s.head_dim * s.d_state) * n_ssd
+        formula += f" + 3·T·h·(2·l·(n + p) + 4·p·n)·{n_ssd} SSD layers"
+    return flops, formula + f", T {tokens}, S {seq}"
+
+
+def timed_optimizer(opt, events: list):
+    """``opt`` whose update records a CUDA event pair around it (the
+    optimizer's share of a step, on the device's clock)."""
+    from repro_torch.train.optim import Optimizer
+
+    def update(*args):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = opt.update(*args)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    return Optimizer(opt.init, update)
+
+
+def profile_train_step(label, model, state, batch, step_idx, sched, k, dev) -> dict:
+    """One more training step under ``torch.profiler`` (device activities):
+    wall and device busy time, the idle share, the dense products' kernels,
+    the optimizer (CUDA events around its update) and the top kernels.
+    Updates ``state`` in place."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import make_optimizer
+
+    events: list = []
+    step, _ = make_train_step(model, timed_optimizer(make_optimizer(model.cfg.optimizer), events),
+                              microbatches=k, schedule=sched)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state.params, state.opt_state, m = step(state.params, state.opt_state, batch, step_idx)
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    opt_ms = events[0][0].elapsed_time(events[0][1])
+    check(bool(torch.isfinite(m["loss"])), f"{label}: profiled step's loss not finite")
+    if not rows:
+        print(f"  {label} profiled step: wall {wall:.1f} ms; the profiler saw no device "
+              f"time (split not measured); optimizer {opt_ms:.1f} ms (CUDA events)")
+        return {"wall": wall, "optimizer": opt_ms}
+    busy = sum(ms for _, ms, _ in rows)
+    gemm = sum(ms for key, ms, _ in rows if any(g in key for g in GEMM_NAMES))
+    print(f"  {label} profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms, idle "
+          f"{max(wall - busy, 0.0):.1f} ms ({max(wall - busy, 0.0) / wall:.0%}); dense "
+          f"product kernels {gemm:.1f} ms ({gemm / busy:.0%} of busy; attention's "
+          f"products among them), optimizer {opt_ms:.1f} ms (CUDA events around its "
+          f"update), the rest {busy - gemm:.1f} ms of other kernels")
+    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"    {ms:9.3f} ms  {ms / busy:5.1%}  x{n:<5d} {key[:90]}")
+    return {"wall": wall, "busy": busy, "gemm": gemm, "optimizer": opt_ms}
+
+
+def attention_alone(cfg, dev, seq: int, calls: int) -> float:
+    """Blocked attention at the step's shape (one row of ``seq``, bf16),
+    forward and forward + backward timed alone (CUDA events, median of 5);
+    returns ``calls`` × (forward + forward-and-backward), what a step with
+    remat runs (the first forward, then the recomputation and backward)."""
+    from repro_torch.models.attention import blocked_attention
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    def rnd(h):
+        return torch.randn((1, seq, h, cfg.head_dim), generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+    q, k, v = rnd(cfg.n_heads), rnd(cfg.n_kv_heads), rnd(cfg.n_kv_heads)
+    pos = torch.arange(seq, device=dev)[None]
+
+    def fwd():
+        with torch.no_grad():
+            blocked_attention(q, k, v, pos, pos, causal=True, block=cfg.attn_block)
+
+    def fwd_bwd():
+        out = blocked_attention(q, k, v, pos, pos, causal=True, block=cfg.attn_block)
+        torch.autograd.grad(out.float().sum(), (q, k, v))
+
+    def ms(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+    f, fb = ms(fwd), ms(fwd_bwd)
+    print(f"  blocked attention alone (1 x {seq}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+          f"{cfg.head_dim}, bf16 in, fp32 scores): forward {f:.2f} ms, forward + backward "
+          f"{fb:.2f} ms; x {calls} per step = {calls * (f + fb):.1f} ms")
+    return calls * (f + fb)
+
+
+def train_full_width(dev, cfg, label: str, *, ckpt: bool) -> None:
+    """``train_loop`` over ``TRAIN_FULL`` on ``cfg`` on the card (seed 0),
+    batches from ``lm_pipeline``: each step's loss, grad norm, lr and time
+    (CUDA events from the batch's hand-over to its metrics, the first step
+    apart), tokens/s, ``train_mfu``, peak memory, no retry and no extend or
+    decode launch; the loss finite and falling.  With ``ckpt`` the loop
+    checkpoints every 4 steps and at the end through ``AsyncCheckpointer``:
+    the last checkpoint must restore bitwise, and a step from it must give
+    bitwise the in-memory state's loss.  Then one more step profiled."""
+    from repro_torch.data.pipeline import lm_pipeline
+    from repro_torch.models.common import tree_items_sorted, tree_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.train.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.train.loop import make_train_step, train_loop
+    from repro_torch.train.optim import warmup_cosine
+
+    t = TRAIN_FULL
+    k = cfg.train_microbatches
+    tokens = t["batch"] * t["seq"]
+    lr = TRAIN_LR[cfg.name]
+    sched = warmup_cosine(lr, t["warmup"], t["steps"] + 2)
+    pipe = lm_pipeline(cfg.vocab_size, batch=t["batch"], seq=t["seq"], n_shards=4, seed=0)
+    starts, ends, hist = [], [], []
+
+    def batches():
+        for b in pipe:
+            dev_b = {kk: torch.from_numpy(v).to(dev) for kk, v in b.items()}
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            starts.append(ev)
+            yield dev_b
+
+    def on_metrics(m):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        hist.append(m)
+
+    model = LM(cfg, device=dev)
+    root = Path(tempfile.mkdtemp(prefix="repro_torch_smoke_")) if ckpt else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = kernel_launches()
+    it = batches()
+    try:
+        state, _ = train_loop(model, it, steps=t["steps"], seed=0, on_metrics=on_metrics,
+                              checkpoint_every=4 if ckpt else 0,
+                              checkpoint_dir=str(root) if ckpt else None, schedule=sched)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_params = sum(x.numel() for x in tree_leaves(state.params))
+        times = [a.elapsed_time(b) / 1e3 for a, b in zip(starts, ends)]
+        steady = float(np.mean(times[1:]))
+        flops, formula = model_flops(model, state.params, tokens, t["seq"])
+        losses = [h["loss"] for h in hist]
+        print(f"  {label}: {n_params / 1e9:.4f} B parameters ({cfg.param_dtype}, compute "
+              f"{cfg.compute_dtype}), {cfg.optimizer}, remat {cfg.remat}, {k} microbatches, "
+              f"batch {t['batch']} x seq {t['seq']} from lm_pipeline, lr warmup_cosine("
+              f"{lr:g}, {t['warmup']}, {t['steps'] + 2})")
+        for h, s in zip(hist, times):
+            print(f"    step {h['step']}: loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
+                  f"lr {h['lr']:.3e}, {s:.3f} s, retries {h['retries']}")
+        print(f"    step time {steady:.4f} s (mean of steps 1-{t['steps'] - 1}; step 0 "
+              f"{times[0]:.3f} s), {tokens / steady:,.0f} tokens/s; train_mfu "
+              f"{flops / steady / PEAK_FLOPS[torch.bfloat16]:.4f} = model FLOPs per step "
+              f"{flops:.4e} / step time / 989e12 (model FLOPs = {formula}); peak memory "
+              f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+        check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+        check(sum(h["retries"] for h in hist) == 0, f"{label}: a step was retried")
+        if ckpt:
+            last = latest_step(root)
+            check(last == t["steps"], f"{label}: latest checkpoint {last}")
+            live = {"params": state.params, "opt_state": state.opt_state}
+            back = restore_checkpoint(root / f"step_{last}", live, verify=True, device=dev)
+            same = all(a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(tree_leaves(back), tree_leaves(live)))
+            check(same, f"{label}: the restored checkpoint differs from the saved state")
+            batch = next(it)
+            step, _ = make_train_step(model, microbatches=k, schedule=sched)
+            p_r, _, m_r = step(back["params"], back["opt_state"], batch, last)
+            p_m, _, m_m = step(state.params, state.opt_state, batch, last)
+            check(torch.equal(m_r["loss"], m_m["loss"]),
+                  f"{label}: a step from the restored checkpoint gave another loss "
+                  f"({float(m_r['loss'])!r} vs {float(m_m['loss'])!r})")
+            worst, equal = 0.0, 0
+            items = tree_items_sorted(p_m)
+            for (path, a), (_, b) in zip(items, tree_items_sorted(p_r)):
+                equal += bool(torch.equal(a, b))
+                worst = max(worst, float(torch.linalg.vector_norm((a - b).double())
+                                         / torch.linalg.vector_norm(a.double()).clamp(min=1e-30)))
+            print(f"    checkpoint step_{last} through AsyncCheckpointer: restored bitwise; "
+                  f"the next step's loss from it {float(m_r['loss']):.6f} bitwise the "
+                  f"in-memory state's; parameters after it: {equal} of {len(items)} leaves "
+                  f"bitwise, worst leaf {worst:.2e} of its norm (limit 1e-4: the card may "
+                  f"sum a gradient in another order)")
+            check(worst <= 1e-4, f"{label}: parameters after the restored step: {worst:.3e}")
+            del back, p_r
+        check(kernel_launches() == before,
+              f"{label}: training launched an attention kernel: {before} -> {kernel_launches()}")
+        batch = next(it)
+        split = profile_train_step(label, model, state, batch, t["steps"] + int(ckpt), sched, k, dev)
+        if any(spec.mixer == "attn" for period, _ in model.segments for spec in period):
+            att = attention_alone(cfg, dev, t["seq"], cfg.n_layers * k)
+            if "busy" in split:
+                print(f"    split: dense products {split['gemm']:.1f} ms (attention's "
+                      f"{att:.1f} ms alone, part fp32 on the CUDA cores), optimizer "
+                      f"{split['optimizer']:.1f} ms, device idle "
+                      f"{max(split['wall'] - split['busy'], 0.0) / split['wall']:.0%} of "
+                      f"{split['wall']:.1f} ms")
+        check(kernel_launches() == before,
+              f"{label}: training launched an attention kernel: {before} -> {kernel_launches()}")
+    finally:
+        pipe.close()
+        if root is not None:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def training_phase(dev) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import param_specs
+
+    base = get_config("deepseek-67b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS)
+    n = sum(int(np.prod(s.shape)) for s in tree_leaves(param_specs(cfg)))
+    print(f"  (a) deepseek-67b, {TRAIN_LAYERS} of {base.n_layers} layers: reckoned "
+          f"{n / 1e9:.4f} B parameters x 16 B (bf16 parameter 2, fp32 moments 8, fp32 "
+          f"gradient sum 4, bf16 gradient 2) = {16 * n / 1e9:.1f} GB before activations")
+    train_full_width(dev, cfg, "(a) deepseek-67b", ckpt=False)
+    torch.cuda.empty_cache()
+    print("  (b) mamba2-130m, 24 layers (full depth)")
+    train_full_width(dev, get_config("mamba2-130m"), "(b) mamba2-130m", ckpt=True)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3428,6 +3827,11 @@ def main() -> int:
         print(f"    reduced {arch} (fp32): SessionManager, card vs CPU")
         reduced_sessions(dev, cfg)
         reduced_context_isolation(dev, cfg)
+    print("    reduced training (fp32): card vs CPU, make_train_step")
+    for arch, opt_name in (("deepseek-67b", ""), ("deepseek-v2-236b", ""),
+                           ("deepseek-v2-236b", "adafactor"), ("mamba2-130m", ""),
+                           ("whisper-large-v3", "")):
+        reduced_training(dev, arch, opt_name)
 
     print(f"[4] full-width main path ({FULL_LAYERS} layers, bf16)")
     counts, eng, ref = main_path(dev)
@@ -3464,6 +3868,8 @@ def main() -> int:
     print("  (b) llama-3.2-vision-11b, 40 layers (full depth, 8 cross)")
     cross_main_path(dev, "llama-3.2-vision-11b")    # G 4 / hd 128: phase 13 (b)'s rows
     torch.cuda.empty_cache()
+    print("[15] training at full width")
+    training_phase(dev)
 
     print("[7] analytics engine (200K x 10): card vs CPU")
     analytics_parity(dev)

@@ -23,14 +23,7 @@ import time
 import numpy as np
 import torch
 
-
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            "repro_torch.launch.analytics: no CUDA device is available; pass "
-            "--device cpu to run the port on the CPU")
-    return device
+from repro_torch.launch import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,7 +50,7 @@ def synchronize(device: torch.device) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "repro_torch.launch.analytics")
 
     from repro_torch.core.descriptors import Range, coalesce
     from repro_torch.core.engine import IncrementalAnalyticsEngine

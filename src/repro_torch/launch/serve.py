@@ -48,13 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(
-            "repro_torch.launch.serve: no CUDA device is available; pass "
-            "--device cpu to run the port on the CPU")
-    return device
+from repro_torch.launch import resolve_device
 
 
 def _tier_kwargs(args) -> dict:
@@ -423,7 +417,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "repro_torch.launch.serve")
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.lm import LM

@@ -60,6 +60,26 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure holding ``leaves``, given in :func:`tree_leaves`
+    order."""
+    it = iter(leaves)
+    return tree_map_with_path(lambda _, x: next(it), tree)
+
+
+def tree_items_sorted(tree, path=()) -> list:
+    """(path, leaf) pairs in ``jax.tree_util``'s flatten order: dict keys
+    sorted, lists and tuples in order (:func:`tree_leaves` keeps a dict's
+    insertion order)."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items_sorted(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [item for i, v in enumerate(tree)
+                for item in tree_items_sorted(v, path + (i,))]
+    return [(path, tree)]
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------

@@ -29,14 +29,23 @@ bidirectional attention layers over ``batch["enc_feats"]``, or
 context K/V as the constant leaves ``ck``/``cv`` ``(L, B, T_ctx, KV,
 hd)``; extend and decode read them from the cache and never run the
 context again.
+
+Training runs :meth:`LM.loss_fn` (``repro``'s: the forward, fp32 token
+cross-entropy, optionally in ``cfg.logit_chunk`` chunks, plus the MoE
+router's aux loss) under ``torch.autograd``.  Its forward writes into no
+tensor that autograd saves and reaches no kernel (none has a backward):
+attention is the plain blocked softmax, as in ``repro``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
 
@@ -45,7 +54,7 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssd as ssd_mod
 from .common import (CACHE_CONST_KEYS, CACHE_STATE_KEYS, cache_leaf_key, dense,
-                     rms_norm, tree_map_with_path)
+                     rms_norm, tree_leaves, tree_map_with_path, tree_unflatten)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -265,6 +274,25 @@ def _layer_params(stacked: dict, i: int) -> dict:
     return tree_map_with_path(lambda _, x: x[i], stacked)
 
 
+def _unstack(stacked: dict) -> list:
+    """Every layer's parameters as views into the stacked leaves, from one
+    ``unbind`` per leaf: its backward stacks the layers' gradients into one
+    tensor, where indexing each layer adds a leaf-sized tensor per layer."""
+    parts = [x.unbind(0) for x in tree_leaves(stacked)]
+    return [tree_unflatten(stacked, [p[i] for p in parts])
+            for i in range(len(parts[0]))]
+
+
+#: ops whose outputs ``remat="dots_saveable"`` keeps: products without batch
+#: dimensions (``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _attn_params(p: dict) -> attn.AttnParams:
     return attn.AttnParams(p["wq"], p["wk"], p["wv"], p["wo"],
                            p.get("q_norm"), p.get("k_norm"))
@@ -342,16 +370,35 @@ class LM:
         return F.embedding(tokens.long(), params["embed"]).to(self.compute_dtype)
 
     def _mlp(self, spec: LayerSpec, p, x):
+        """The feed-forward sublayer: (x + its output, the router's aux
+        loss, a 0-d fp32 tensor, or None for a layer without MoE)."""
         cfg = self.cfg
         if spec.mlp == "none":
-            return x
+            return x, None
         hn = rms_norm(x.to(self.compute_dtype), p["ln2"], cfg.norm_eps)
+        aux = None
         if spec.mlp == "moe":
-            y, _ = moe_mod.moe_ffn(_moe_params(p["mlp"]), cfg.moe, hn,
-                                   activation=cfg.activation, groups=cfg.moe_groups)
+            y, aux = moe_mod.moe_ffn(_moe_params(p["mlp"]), cfg.moe, hn,
+                                     activation=cfg.activation, groups=cfg.moe_groups)
         else:
             y = moe_mod.dense_ffn(p["mlp"], hn, cfg.activation)
-        return x + y.to(x.dtype)
+        return x + y.to(x.dtype), aux
+
+    def _self_mix(self, spec: LayerSpec, p, h, positions):
+        """A layer's mixer over the whole sequence (prefill and training):
+        (its output, its cache leaves in :data:`CACHE_LEAVES` order)."""
+        cfg = self.cfg
+        if spec.mixer == "ssd":
+            return ssd_mod.ssd_block(
+                _ssd_params(p["mixer"]), cfg.ssm, cfg.d_model, h,
+                norm_eps=cfg.norm_eps, return_state=True)
+        if spec.mixer == "mla":
+            return mla_mod.mla_self_attention(
+                _mla_params(p["mixer"]), cfg.mla, h, positions,
+                theta=cfg.rope_theta, block=cfg.attn_block)
+        return attn.self_attention(
+            _attn_params(p["mixer"]), h, positions, causal=spec.mixer != "attn_bidir",
+            theta=cfg.rope_theta, block=cfg.attn_block, expand_kv=cfg.expand_kv)
 
     def _cross(self, p, x, ctx_kv):
         """The cross-attention sublayer over context K/V ``ctx_kv``."""
@@ -390,13 +437,10 @@ class LM:
             x = torch.as_tensor(batch["enc_feats"], device=device).to(self.compute_dtype)
             b, t = x.shape[:2]
             pos = torch.arange(t, device=device).expand(b, t)
-            for i in range(cfg.encoder_layers):
-                p = _layer_params(enc["layers"]["p0"], i)
-                h = rms_norm(x, p["ln1"], cfg.norm_eps)
-                mixed, _ = attn.self_attention(
-                    _attn_params(p["mixer"]), h, pos, causal=False,
-                    theta=cfg.rope_theta, block=cfg.attn_block, expand_kv=cfg.expand_kv)
-                x = self._mlp(ENCODER_LAYER, p, x + mixed.to(x.dtype))
+            for p in _unstack(enc["layers"]["p0"]):
+                mixed, _ = self._self_mix(ENCODER_LAYER, p,
+                                          rms_norm(x, p["ln1"], cfg.norm_eps), pos)
+                x, _ = self._mlp(ENCODER_LAYER, p, x + mixed.to(x.dtype))
             return rms_norm(x, enc["final_norm"], cfg.norm_eps)
         if cfg.vision_context:
             x = torch.as_tensor(batch["image_embeds"], device=device)
@@ -411,6 +455,77 @@ class LM:
     def _final_logits(self, params, x):
         hidden = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self.logits(params, hidden[:, -1:, :])[:, 0]
+
+    # -- training -----------------------------------------------------------
+    def _period(self, period, positions, ctx, x, aux, layers):
+        """One period of a segment over the whole sequence (``repro``'s scan
+        body): (x, aux with each MoE layer's aux added in layer order)."""
+        for spec, p in zip(period, layers):
+            h = rms_norm(x.to(self.compute_dtype), p["ln1"], self.cfg.norm_eps)
+            mixed, _ = self._self_mix(spec, p, h, positions)
+            x = x + mixed.to(x.dtype)
+            if spec.cross:
+                x = self._cross(p, x, attn.project_context(_attn_params(p["cross"]), ctx))
+            x, a = self._mlp(spec, p, x)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def forward(self, params, batch, *, remat=None):
+        """tokens (B, S) → (final hidden states (B, S, d), MoE aux loss, a
+        0-d fp32 tensor summed over the layers).
+
+        ``remat`` (default ``cfg.remat != "none"``) runs each period under
+        ``torch.utils.checkpoint``, as ``repro`` wraps its scan body in
+        ``jax.checkpoint``: ``"full"`` keeps only the period's inputs,
+        ``"dots_saveable"`` also the outputs of products without batch
+        dimensions.  Recomputation changes no value.
+        """
+        cfg = self.cfg
+        remat = (cfg.remat != "none") if remat is None else remat
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        ctx = self._context(params, batch, tokens.device)
+        context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                      if cfg.remat == "dots_saveable" else noop_context_fn)
+        zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        aux = zero
+        for (period, n), seg_params in zip(self.segments, params["segments"]):
+            layers = [_unstack(seg_params[f"p{j}"]) for j in range(len(period))]
+            body = functools.partial(self._period, period, positions, ctx)
+            seg_aux = zero
+            for i in range(n):
+                args = (x, seg_aux, [layers[j][i] for j in range(len(period))])
+                if remat:
+                    x, seg_aux = checkpoint(body, *args, use_reentrant=False,
+                                            context_fn=context_fn)
+                else:
+                    x, seg_aux = body(*args)
+            aux = aux + seg_aux
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+    def loss_fn(self, params, batch):
+        """Mean next-token cross-entropy plus ``router_aux_weight`` × the
+        MoE aux loss: (loss, {"ce", "aux"}).  With ``cfg.logit_chunk``
+        dividing the sequence, the logits are made and summed one chunk at
+        a time, in order, and the sum divided by the number of targets."""
+        cfg = self.cfg
+        hidden, aux = self.forward(params, batch)
+        targets = batch["targets"]
+        s, chunk = hidden.shape[1], cfg.logit_chunk
+        if chunk and s % chunk == 0:
+            ce = torch.zeros((), dtype=torch.float32, device=hidden.device)
+            for c in range(0, s, chunk):
+                ll = _token_ce(self.logits(params, hidden[:, c:c + chunk]),
+                               targets[:, c:c + chunk])
+                ce = ce + ll.sum()
+            ce = ce / targets.numel()
+        else:
+            ce = _token_ce(self.logits(params, hidden), targets).mean()
+        moe_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+        return ce + moe_w * aux, {"ce": ce, "aux": aux}
 
     # -- serving ------------------------------------------------------------
     def prefill(self, params, batch):
@@ -427,19 +542,7 @@ class LM:
         kv: dict = {}
         for seg, j, _, spec, p, _, _ in self._layers(params):
             h = rms_norm(x.to(self.compute_dtype), p["ln1"], cfg.norm_eps)
-            if spec.mixer == "ssd":
-                mixed, leaves = ssd_mod.ssd_block(
-                    _ssd_params(p["mixer"]), cfg.ssm, cfg.d_model, h,
-                    norm_eps=cfg.norm_eps, return_state=True)
-            elif spec.mixer == "mla":
-                mixed, leaves = mla_mod.mla_self_attention(
-                    _mla_params(p["mixer"]), cfg.mla, h, positions,
-                    theta=cfg.rope_theta, block=cfg.attn_block)
-            else:
-                mixed, leaves = attn.self_attention(
-                    _attn_params(p["mixer"]), h, positions, causal=True,
-                    theta=cfg.rope_theta, block=cfg.attn_block,
-                    expand_kv=cfg.expand_kv)
+            mixed, leaves = self._self_mix(spec, p, h, positions)
             x = x + mixed.to(x.dtype)
             leaves = dict(zip(CACHE_LEAVES[spec.mixer], leaves))
             if spec.cross:
@@ -448,7 +551,7 @@ class LM:
                 ctx_kv = attn.project_context(_attn_params(p["cross"]), ctx)
                 leaves.update(zip(CACHE_CONST_KEYS, ctx_kv))
                 x = self._cross(p, x, ctx_kv)
-            x = self._mlp(spec, p, x)
+            x, _ = self._mlp(spec, p, x)
             kv.setdefault((seg, j), []).append(leaves)
         caches = [
             {f"p{j}": {name: torch.stack([lv[name] for lv in kv[(seg, j)]])
@@ -493,7 +596,7 @@ class LM:
             x = x + mixed.to(x.dtype)
             if spec.cross:
                 x = self._cross(p, x, ctx_kv)
-            x = self._mlp(spec, p, x)
+            x, _ = self._mlp(spec, p, x)
         return self._final_logits(params, x), caches
 
     def prefill_extend_many(self, params, caches, tokens, start, n_chunks: int):
@@ -559,6 +662,13 @@ class LM:
             x = x + mixed.to(x.dtype)
             if spec.cross:
                 x = self._cross(p, x, ctx_kv)
-            x = self._mlp(spec, p, x)
+            x, _ = self._mlp(spec, p, x)
         hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return self.logits(params, hidden)[:, 0], caches
+
+
+def _token_ce(logits, targets):
+    """Per-token cross-entropy in fp32: logsumexp minus the target's logit."""
+    lg = logits.float()
+    true = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(lg, dim=-1) - true
