@@ -204,6 +204,20 @@ printed) and runs:
      loss that falls and no extend or decode launch, then profiles one
      more step (dense products, the optimizer, idle share; for (a) the
      blocked attention timed alone).
+ 16. distribution, after phase 15: a world-size-1 NCCL process group
+     (``file://`` rendezvous in a temporary directory) and a (1, 1)
+     ``pod`` x ``data`` ``DeviceMesh`` on ``cuda``.  (a) ``mamba2-130m``
+     at full width and depth, phase 15 (b)'s model and batches: two
+     uncompressed ``make_multipod_train_step`` steps give bitwise the
+     parameters, optimizer state and losses of ``make_train_step`` from
+     the same state; ``compressed_psum`` at n = 1 gives bitwise
+     ``ef_compress``'s dequantized value and residual, leaf for leaf, from
+     zero and from a carried residual.  (b) ``deepseek-67b`` at 2 layers,
+     phase 15 (a)'s model, batches and lr: 6 compressed multipod steps;
+     the loss finite and falling, its gap to phase 15 (a)'s last loss,
+     the step time (CUDA events, the first step apart), the exchange's
+     own time, retries (none) and the reckoned and measured peak memory.
+     Neither launches an extend or decode kernel.
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -2719,7 +2733,7 @@ def attention_alone(cfg, dev, seq: int, calls: int) -> float:
     return calls * (f + fb)
 
 
-def train_full_width(dev, cfg, label: str, *, ckpt: bool) -> None:
+def train_full_width(dev, cfg, label: str, *, ckpt: bool) -> list[float]:
     """``train_loop`` over ``TRAIN_FULL`` on ``cfg`` on the card (seed 0),
     batches from ``lm_pipeline``: each step's loss, grad norm, lr and time
     (CUDA events from the batch's hand-over to its metrics, the first step
@@ -2727,7 +2741,8 @@ def train_full_width(dev, cfg, label: str, *, ckpt: bool) -> None:
     decode launch; the loss finite and falling.  With ``ckpt`` the loop
     checkpoints every 4 steps and at the end through ``AsyncCheckpointer``:
     the last checkpoint must restore bitwise, and a step from it must give
-    bitwise the in-memory state's loss.  Then one more step profiled."""
+    bitwise the in-memory state's loss.  Then one more step profiled.
+    Returns the loss of every step of the loop."""
     from repro_torch.data.pipeline import lm_pipeline
     from repro_torch.models.common import tree_items_sorted, tree_leaves
     from repro_torch.models.lm import LM
@@ -2831,13 +2846,15 @@ def train_full_width(dev, cfg, label: str, *, ckpt: bool) -> None:
                       f"{split['wall']:.1f} ms")
         check(kernel_launches() == before,
               f"{label}: training launched an attention kernel: {before} -> {kernel_launches()}")
+        return losses
     finally:
         pipe.close()
         if root is not None:
             shutil.rmtree(root, ignore_errors=True)
 
 
-def training_phase(dev) -> None:
+def training_phase(dev) -> list[float]:
+    """Phase 15; returns (a)'s losses, step by step."""
     from repro_torch.configs import get_config
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.lm import param_specs
@@ -2848,11 +2865,210 @@ def training_phase(dev) -> None:
     print(f"  (a) deepseek-67b, {TRAIN_LAYERS} of {base.n_layers} layers: reckoned "
           f"{n / 1e9:.4f} B parameters x 16 B (bf16 parameter 2, fp32 moments 8, fp32 "
           f"gradient sum 4, bf16 gradient 2) = {16 * n / 1e9:.1f} GB before activations")
-    train_full_width(dev, cfg, "(a) deepseek-67b", ckpt=False)
+    losses = train_full_width(dev, cfg, "(a) deepseek-67b", ckpt=False)
     torch.cuda.empty_cache()
     print("  (b) mamba2-130m, 24 layers (full depth)")
     train_full_width(dev, get_config("mamba2-130m"), "(b) mamba2-130m", ckpt=True)
     torch.cuda.empty_cache()
+    return losses
+
+
+# ---------------------------------------------------------------------------
+# phase 16: distribution on a world-size-1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+def full_width_state(model, dev, seed: int = 0):
+    """Parameters as ``train_loop`` draws them (a generator on the card
+    seeded with ``seed``) and the optimizer's initial state."""
+    from repro_torch.train.optim import make_optimizer
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen)
+    return params, make_optimizer(model.cfg.optimizer).init(params)
+
+
+def pipeline_batches(cfg, dev, steps: int) -> list:
+    """The first ``steps`` batches phase 15 trains on, on the card."""
+    from repro_torch.data.pipeline import lm_pipeline
+
+    t = TRAIN_FULL
+    pipe = lm_pipeline(cfg.vocab_size, batch=t["batch"], seq=t["seq"], n_shards=4, seed=0)
+    try:
+        return [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+                for _ in range(steps)]
+    finally:
+        pipe.close()
+
+
+def same_leaves(a, b) -> tuple[int, int]:
+    """(leaves equal bitwise in dtype and value, leaves) of two trees."""
+    from repro_torch.models.common import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return sum(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb)), len(la)
+
+
+def multipod_parity(dev, mesh) -> None:
+    """Phase 16 (a): full-depth ``mamba2-130m``, two uncompressed multipod
+    steps against ``make_train_step``, and ``compressed_psum`` at n = 1
+    against ``ef_compress``, all bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import compressed_psum, ef_compress
+    from repro_torch.distributed.multipod import ef_init, make_multipod_train_step
+    from repro_torch.models.common import tree_leaves, tree_map_with_path
+    from repro_torch.models.lm import LM
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import warmup_cosine
+
+    cfg = get_config("mamba2-130m")
+    model = LM(cfg, device=dev)
+    k = cfg.train_microbatches
+    sched = warmup_cosine(TRAIN_LR[cfg.name], TRAIN_FULL["warmup"], TRAIN_FULL["steps"] + 2)
+    batches = pipeline_batches(cfg, dev, 2)
+    captured = []
+
+    def capture(grads):
+        captured.append(tree_map_with_path(lambda _, g: g.clone(), grads))
+        return grads
+
+    single, _ = make_train_step(model, microbatches=k, schedule=sched, grad_transform=capture)
+    multi, _ = make_multipod_train_step(model, mesh, microbatches=k, schedule=sched,
+                                        compress=False)
+    p_s, o_s = full_width_state(model, dev)
+    p_m, o_m = full_width_state(model, dev)
+    ef = ef_init(p_m)
+    for i, batch in enumerate(batches):
+        p_s, o_s, m_s = single(p_s, o_s, batch, i)
+        p_m, o_m, ef, m_m = multi(p_m, o_m, ef, batch, i)
+        check(torch.equal(m_s["loss"], m_m["loss"]),
+              f"16 (a): step {i} loss {float(m_m['loss'])!r} vs make_train_step's "
+              f"{float(m_s['loss'])!r}")
+    params, opt = same_leaves(p_m, p_s), same_leaves(o_m, o_s)
+    n = sum(x.numel() for x in tree_leaves(p_s))
+    print(f"  (a) mamba2-130m, {cfg.n_layers} layers ({n / 1e9:.4f} B, {cfg.param_dtype}), "
+          f"{k} microbatches of lm_pipeline's {TRAIN_FULL['batch']} x {TRAIN_FULL['seq']}: 2 "
+          f"uncompressed multipod steps vs make_train_step: losses "
+          f"{float(m_m['loss']):.6f} bitwise, parameters {params[0]} of {params[1]} leaves "
+          f"bitwise, optimizer state {opt[0]} of {opt[1]}")
+    check(params[0] == params[1] and opt[0] == opt[1],
+          "16 (a): the multipod step's state differs from make_train_step's")
+    del p_s, o_s, p_m, o_m, ef
+    grads = captured[0]
+    ef = ef_init(grads)
+    for label in ("zero residual", "carried residual"):
+        mean, new_ef = compressed_psum(grads, ef, mesh["pod"])
+        equal = 0
+        for g, e, mm, ne in zip(tree_leaves(grads), tree_leaves(ef), tree_leaves(mean),
+                                tree_leaves(new_ef)):
+            q, scale, residual = ef_compress(g, e)
+            equal += torch.equal(mm, q.float() * scale) and torch.equal(ne, residual)
+        leaves = len(tree_leaves(grads))
+        print(f"    compressed_psum at n = 1 ({label}): {equal} of {leaves} leaves bitwise "
+              f"ef_compress's dequantized value and residual")
+        check(equal == leaves, f"16 (a): compressed_psum at n = 1 ({label}) differs from "
+                               f"ef_compress")
+        ef = new_ef
+
+
+def multipod_full_width(dev, mesh, phase15_losses: list[float]) -> None:
+    """Phase 16 (b): ``deepseek-67b`` at ``TRAIN_LAYERS`` layers, 6
+    compressed multipod steps from phase 15 (a)'s parameters, batches and
+    schedule."""
+    import repro_torch.distributed.multipod as multipod
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.lm import LM
+    from repro_torch.train.optim import warmup_cosine
+
+    cfg = dataclasses.replace(get_config("deepseek-67b"), n_layers=TRAIN_LAYERS)
+    model = LM(cfg, device=dev)
+    t = TRAIN_FULL
+    k = cfg.train_microbatches
+    sched = warmup_cosine(TRAIN_LR[cfg.name], t["warmup"], t["steps"] + 2)
+    batches = pipeline_batches(cfg, dev, t["steps"])
+    exchange: list = []
+    inner = multipod.compressed_mean
+
+    def timed_mean(*args):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = inner(*args)
+        ev[1].record()
+        exchange.append(ev)
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt_state = full_width_state(model, dev)
+    ef = multipod.ef_init(params)
+    leaves = tree_leaves(params)
+    n = sum(x.numel() for x in leaves)
+    largest = max(x.numel() for x in leaves)
+    step, _ = multipod.make_multipod_train_step(model, mesh, microbatches=k, schedule=sched,
+                                                compress=True)
+    losses, times, exch = [], [], []
+    multipod.compressed_mean = timed_mean
+    try:
+        for i, batch in enumerate(batches):
+            exchange.clear()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, opt_state, ef, m = step(params, opt_state, ef, batch, i)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+            exch.append(sum(x.elapsed_time(y) for x, y in exchange))
+            losses.append(float(m["loss"]))
+            print(f"    step {i}: loss {losses[-1]:.4f}, grad norm {float(m['grad_norm']):.4f}, "
+                  f"lr {float(m['lr']):.3e}, {times[-1]:.3f} s, pod exchange "
+                  f"{exch[-1]:.1f} ms ({len(exchange)} leaves), retries 0")
+    finally:
+        multipod.compressed_mean = inner
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = float(np.mean(times[1:]))
+    tokens = t["batch"] * t["seq"]
+    gap = losses[-1] - phase15_losses[-1]
+    print(f"  (b) deepseek-67b, {TRAIN_LAYERS} layers ({n / 1e9:.4f} B, {cfg.param_dtype}), "
+          f"{cfg.optimizer}, {k} microbatches, lr warmup_cosine({TRAIN_LR[cfg.name]:g}, "
+          f"{t['warmup']}, {t['steps'] + 2}), EF-int8 pod exchange at n = 1: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; phase 15 (a) on the same batches "
+          f"{phase15_losses[0]:.4f} -> {phase15_losses[-1]:.4f}, last-loss gap {gap:+.4f}")
+    print(f"    step time {steady:.4f} s (mean of steps 1-{t['steps'] - 1}; step 0 "
+          f"{times[0]:.3f} s), {tokens / steady:,.0f} tokens/s; pod exchange "
+          f"{float(np.mean(exch[1:])):.1f} ms a step (CUDA events around each leaf's "
+          f"compressed_mean); retries 0")
+    print(f"    peak memory {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); reckoned steady "
+          f"{18 * n / 1e9:.1f} GB (bf16 parameter 2, fp32 moments 8, fp32 gradient sum 4, "
+          f"fp32 EF 4 B a parameter) + the largest leaf's exchange temporaries "
+          f"{13 * largest / 1e9:.1f} GB (13 B an element of {largest / 1e6:.0f} M)")
+    check(all(np.isfinite(losses)), f"16 (b): non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"16 (b): loss did not fall: {losses}")
+
+
+def distribution_phase(dev, phase15_losses: list[float]) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.multipod import BACKENDS
+
+    tmp = Path(tempfile.mkdtemp(prefix="repro_torch_dist_"))
+    dist.init_process_group(BACKENDS["cuda"], init_method=f"file://{tmp / 'rendezvous'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("pod", "data"))
+        print(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on cuda, backend "
+              f"{dist.get_backend(mesh['pod'].get_group())}")
+        before = kernel_launches()
+        multipod_parity(dev, mesh)
+        torch.cuda.empty_cache()
+        multipod_full_width(dev, mesh, phase15_losses)
+        torch.cuda.empty_cache()
+        check(kernel_launches() == before,
+              f"16: an extend or decode kernel launched: {before} -> {kernel_launches()}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3869,7 +4085,9 @@ def main() -> int:
     cross_main_path(dev, "llama-3.2-vision-11b")    # G 4 / hd 128: phase 13 (b)'s rows
     torch.cuda.empty_cache()
     print("[15] training at full width")
-    training_phase(dev)
+    phase15_losses = training_phase(dev)
+    print("[16] distribution: a world-size-1 NCCL mesh")
+    distribution_phase(dev, phase15_losses)
 
     print("[7] analytics engine (200K x 10): card vs CPU")
     analytics_parity(dev)

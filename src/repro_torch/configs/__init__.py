@@ -33,6 +33,10 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}") from None
 
 
+def list_archs() -> list[str]:
+    return sorted(ARCHS)
+
+
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """CPU-smoke variant: same family/structure, tiny dims.
 
@@ -90,4 +94,4 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
 
 
 __all__ = ["ARCHS", "ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig",
-           "get_config", "reduced"]
+           "get_config", "list_archs", "reduced"]

@@ -8,8 +8,10 @@ fp32, fp32 division, round half to even, clamp to ±127, so the codes are
 ``repro``'s bit for bit.  ``ef_compress`` carries the quantization
 residual to the next step (error feedback, Seide et al. 2014).
 
-``repro``'s ``compressed_psum`` (an all-gather over a mesh axis inside the
-train step) belongs to training on a device mesh and is not here.
+``compressed_psum`` is the EF-int8 mean over a process group (the pod
+dimension of the multipod train step): each rank's int8 payload and its
+one fp32 scale are all-gathered, and every rank sums the dequantized
+payloads in rank order.
 
 The sharded segment store rides this module for its wire payloads:
 ``pack_arrays``/``unpack_arrays`` turn a named-array dict (a segment's
@@ -23,8 +25,9 @@ import io
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.common import tree_leaves, tree_map_with_path
+from repro_torch.models.common import tree_leaves, tree_map_with_path, tree_unflatten
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -53,6 +56,62 @@ def ef_state_like(grads):
     return tree_map_with_path(
         lambda _, g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
         grads)
+
+
+#: elements per slice of the mean's fp64 sum (128 MiB of fp64)
+_SLICE = 1 << 24
+
+
+def _process_group(group):
+    """A ``ProcessGroup``, or the group of a one-dimensional ``DeviceMesh``."""
+    return group.get_group() if hasattr(group, "get_group") else group
+
+
+def compressed_mean(g: torch.Tensor, ef: torch.Tensor, group):
+    """One leaf of :func:`compressed_psum`: (the mean over ``group`` of
+    every rank's dequantized ``ef_compress(g, ef)``, in ``g``'s dtype; this
+    rank's new residual).
+
+    The sum runs in rank order with ``repro``'s rounding (XLA's fp32 dot):
+    the first term ``scale_0 · q_0`` rounded to fp32, then each further
+    term added with one rounding, as a fused multiply-add (exact in fp64,
+    ``scale_i · q_i`` having at most 32 significant bits), in slices of
+    ``_SLICE`` elements; then the division by n.  At n = 1 the mean is
+    ``dequantize_int8(q, scale)`` bit for bit.  Temporaries are freed
+    before it returns.
+    """
+    pg = _process_group(group)
+    q, scale, new_ef = ef_compress(g, ef)
+    n = dist.get_world_size(pg)
+    qs = [torch.empty_like(q) for _ in range(n)]
+    scales = [torch.empty_like(scale) for _ in range(n)]
+    dist.all_gather(qs, q, group=pg)              # int8 on the wire
+    dist.all_gather(scales, scale, group=pg)      # one fp32 each
+    del q
+    acc = scales[0] * qs[0].float()
+    flat = acc.view(-1)
+    for i in range(1, n):
+        qi, si = qs[i].view(-1), scales[i].double()
+        for lo in range(0, flat.numel(), _SLICE):
+            sl = slice(lo, lo + _SLICE)
+            flat[sl] = (flat[sl].double() + si * qi[sl].double()).float()
+    del qs
+    return acc.div_(n).to(g.dtype), new_ef
+
+
+def compressed_psum(grads, ef_state, group):
+    """EF-int8 all-reduce over ``group`` (mean), leaf by leaf:
+    ``(mean_tree, new_ef_tree)``, as ``repro``'s over a mesh axis.
+
+    ``group`` is a ``ProcessGroup`` or one dimension of a ``DeviceMesh``
+    (``mesh["pod"]``).  The wire carries the int8 payload and one fp32
+    scale per leaf: 1 byte/element against 8 for a ring fp32 all-reduce.
+    """
+    pairs: list = []
+    tree_map_with_path(lambda _, g, e: pairs.append(compressed_mean(g, e, group)),
+                       grads, ef_state)
+    return (tree_unflatten(grads, [m for m, _ in pairs]),
+            tree_unflatten(grads, [e for _, e in pairs]))
 
 
 def compressed_bytes(grads) -> int:

@@ -1,12 +1,20 @@
-"""Shared model machinery: cache-leaf taxonomy, norms, RoPE, projections.
+"""Shared model machinery: parameter specs, cache-leaf taxonomy, norms,
+RoPE, projections.
 
 PyTorch counterparts of ``repro.models.common``; layouts are the JAX
 package's (weights ``(d, H, hd)`` / ``(H, hd, d)`` / ``(d, d_ff)``), so the
 two packages' tensors compare leaf by leaf.
+
+Parameters are built from a **spec tree** (nested dicts and lists with
+:class:`ParamSpec` leaves): ``LM.init`` materializes it, and
+:func:`axes_tree` gives the logical axis names that
+``repro_torch.distributed.sharding`` maps onto a device mesh.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +86,43 @@ def tree_items_sorted(tree, path=()) -> list:
         return [item for i, v in enumerate(tree)
                 for item in tree_items_sorted(v, path + (i,))]
     return [(path, tree)]
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]   # logical axis per dim (None = replicated)
+    init: str = "normal"              # normal | zeros | ones | small_normal
+    scale: float = 1.0
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def spec_map(fn: Callable[[ParamSpec], object], tree):
+    """``fn`` over every :class:`ParamSpec` leaf, keeping the tree."""
+    return tree_map_with_path(lambda _, s: fn(s), tree)
+
+
+def axes_tree(specs):
+    """The spec tree with each leaf's logical axes (a tuple) in its place."""
+    return spec_map(lambda s: s.axes, specs)
+
+
+def param_count(specs) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(specs))
+
+
+def param_bytes(specs, dtype: torch.dtype) -> int:
+    return param_count(specs) * dtype.itemsize
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,11 @@ cross-entropy, optionally in ``cfg.logit_chunk`` chunks, plus the MoE
 router's aux loss) under ``torch.autograd``.  Its forward writes into no
 tensor that autograd saves and reaches no kernel (none has a backward):
 attention is the plain blocked softmax, as in ``repro``.
+
+Activations pass through ``distributed.sharding.constrain`` where
+``repro``'s do: after the embedding of the training forward, after every
+layer of the training forward, the prefill and the encoder, and on the
+logits.  Outside a rules context the hook returns its input.
 """
 from __future__ import annotations
 
@@ -48,13 +53,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 
 from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssd as ssd_mod
-from .common import (CACHE_CONST_KEYS, CACHE_STATE_KEYS, cache_leaf_key, dense,
-                     rms_norm, tree_leaves, tree_map_with_path, tree_unflatten)
+from .common import (CACHE_CONST_KEYS, CACHE_STATE_KEYS, ParamSpec, cache_leaf_key, dense,
+                     rms_norm, spec_map, tree_leaves, tree_map_with_path, tree_unflatten)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -118,35 +124,28 @@ def build_segments(cfg: ArchConfig) -> list[tuple[tuple[LayerSpec, ...], int]]:
 # parameter specs
 # ---------------------------------------------------------------------------
 
-@dataclass(frozen=True)
-class ParamSpec:
-    shape: tuple[int, ...]
-    init: str = "normal"              # normal | zeros | ones | small_normal
-    scale: float = 1.0
-
-
 def _attn_specs(cfg: ArchConfig) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
-        "wq": ParamSpec((d, H, hd)),
-        "wk": ParamSpec((d, KV, hd)),
-        "wv": ParamSpec((d, KV, hd)),
-        "wo": ParamSpec((H, hd, d), scale=cfg.n_layers ** -0.5),
+        "wq": ParamSpec((d, H, hd), ("embed", "heads", None)),
+        "wk": ParamSpec((d, KV, hd), ("embed", "kv_heads", None)),
+        "wv": ParamSpec((d, KV, hd), ("embed", "kv_heads", None)),
+        "wo": ParamSpec((H, hd, d), ("heads", None, "embed"), scale=cfg.n_layers ** -0.5),
     }
     if cfg.qk_norm:
-        s["q_norm"] = ParamSpec((hd,), "ones")
-        s["k_norm"] = ParamSpec((hd,), "ones")
+        s["q_norm"] = ParamSpec((hd,), (None,), "ones")
+        s["k_norm"] = ParamSpec((hd,), (None,), "ones")
     return s
 
 
 def _dense_mlp_specs(cfg: ArchConfig, d_ff: int) -> dict:
     d = cfg.d_model
     s = {
-        "w_up": ParamSpec((d, d_ff)),
-        "w_down": ParamSpec((d_ff, d), scale=cfg.n_layers ** -0.5),
+        "w_up": ParamSpec((d, d_ff), ("embed", "ff")),
+        "w_down": ParamSpec((d_ff, d), ("ff", "embed"), scale=cfg.n_layers ** -0.5),
     }
     if cfg.activation == "swiglu":
-        s["w_gate"] = ParamSpec((d, d_ff))
+        s["w_gate"] = ParamSpec((d, d_ff), ("embed", "ff"))
     return s
 
 
@@ -154,14 +153,16 @@ def _mla_specs(cfg: ArchConfig) -> dict:
     m = cfg.mla
     d, H = cfg.d_model, cfg.n_heads
     return {
-        "w_dq": ParamSpec((d, m.q_lora_rank)),
-        "q_norm": ParamSpec((m.q_lora_rank,), "ones"),
-        "w_uq": ParamSpec((m.q_lora_rank, H, m.qk_nope_head_dim + m.qk_rope_head_dim)),
-        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-        "kv_norm": ParamSpec((m.kv_lora_rank,), "ones"),
-        "w_uk": ParamSpec((m.kv_lora_rank, H, m.qk_nope_head_dim)),
-        "w_uv": ParamSpec((m.kv_lora_rank, H, m.v_head_dim)),
-        "w_o": ParamSpec((H, m.v_head_dim, d), scale=cfg.n_layers ** -0.5),
+        "w_dq": ParamSpec((d, m.q_lora_rank), ("embed", None)),
+        "q_norm": ParamSpec((m.q_lora_rank,), (None,), "ones"),
+        "w_uq": ParamSpec((m.q_lora_rank, H, m.qk_nope_head_dim + m.qk_rope_head_dim),
+                          (None, "heads", None)),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", None)),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), (None,), "ones"),
+        "w_uk": ParamSpec((m.kv_lora_rank, H, m.qk_nope_head_dim), (None, "heads", None)),
+        "w_uv": ParamSpec((m.kv_lora_rank, H, m.v_head_dim), (None, "heads", None)),
+        "w_o": ParamSpec((H, m.v_head_dim, d), ("heads", None, "embed"),
+                         scale=cfg.n_layers ** -0.5),
     }
 
 
@@ -173,14 +174,14 @@ def _ssd_specs(cfg: ArchConfig) -> dict:
     gn = s.n_groups * s.d_state
     conv_ch = d_in + 2 * gn
     return {
-        "w_in": ParamSpec((d, 2 * d_in + 2 * gn + h)),
-        "conv_w": ParamSpec((s.conv_width, conv_ch)),
-        "conv_b": ParamSpec((conv_ch,), "zeros"),
-        "a_log": ParamSpec((h,), "ones"),
-        "d_skip": ParamSpec((h,), "ones"),
-        "dt_bias": ParamSpec((h,), "zeros"),
-        "out_norm": ParamSpec((d_in,), "ones"),
-        "w_out": ParamSpec((d_in, d), scale=cfg.n_layers ** -0.5),
+        "w_in": ParamSpec((d, 2 * d_in + 2 * gn + h), ("embed", "ssm_inner")),
+        "conv_w": ParamSpec((s.conv_width, conv_ch), (None, "ssm_inner")),
+        "conv_b": ParamSpec((conv_ch,), ("ssm_inner",), "zeros"),
+        "a_log": ParamSpec((h,), ("ssm_heads",), "ones"),
+        "d_skip": ParamSpec((h,), ("ssm_heads",), "ones"),
+        "dt_bias": ParamSpec((h,), ("ssm_heads",), "zeros"),
+        "out_norm": ParamSpec((d_in,), ("ssm_inner",), "ones"),
+        "w_out": ParamSpec((d_in, d), ("ssm_inner", "embed"), scale=cfg.n_layers ** -0.5),
     }
 
 
@@ -188,11 +189,11 @@ def _moe_specs(cfg: ArchConfig) -> dict:
     m = cfg.moe
     d = cfg.d_model
     s = {
-        "router": ParamSpec((d, m.n_experts)),
+        "router": ParamSpec((d, m.n_experts), ("embed", None)),
         "experts": {
-            "w_gate": ParamSpec((m.n_experts, d, m.d_ff_expert)),
-            "w_up": ParamSpec((m.n_experts, d, m.d_ff_expert)),
-            "w_down": ParamSpec((m.n_experts, m.d_ff_expert, d),
+            "w_gate": ParamSpec((m.n_experts, d, m.d_ff_expert), ("experts", "embed", "ff")),
+            "w_up": ParamSpec((m.n_experts, d, m.d_ff_expert), ("experts", "embed", "ff")),
+            "w_down": ParamSpec((m.n_experts, m.d_ff_expert, d), ("experts", "ff", "embed"),
                                 scale=cfg.n_layers ** -0.5),
         },
     }
@@ -205,19 +206,20 @@ def _layer_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     d = cfg.d_model
     mixer = {"attn": _attn_specs, "attn_bidir": _attn_specs, "mla": _mla_specs,
              "ssd": _ssd_specs}[spec.mixer]
-    out: dict = {"ln1": ParamSpec((d,), "ones"), "mixer": mixer(cfg)}
+    out: dict = {"ln1": ParamSpec((d,), ("embed",), "ones"), "mixer": mixer(cfg)}
     if spec.cross:
-        out["cross_ln"] = ParamSpec((d,), "ones")
+        out["cross_ln"] = ParamSpec((d,), ("embed",), "ones")
         out["cross"] = _attn_specs(cfg)
     if spec.mlp != "none":
-        out["ln2"] = ParamSpec((d,), "ones")
+        out["ln2"] = ParamSpec((d,), ("embed",), "ones")
         out["mlp"] = _moe_specs(cfg) if spec.mlp == "moe" else _dense_mlp_specs(cfg, cfg.d_ff)
     return out
 
 
 def _stack_specs(tree, n: int):
-    return tree_map_with_path(
-        lambda _, s: ParamSpec((n,) + s.shape, s.init, s.scale), tree)
+    """Every leaf stacked over ``n`` layers: a leading ``"layers"`` axis."""
+    return spec_map(
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init, s.scale), tree)
 
 
 #: the encoder's layer (whisper): bidirectional self-attention, dense MLP
@@ -225,11 +227,11 @@ ENCODER_LAYER = LayerSpec("attn_bidir", "dense")
 
 
 def param_specs(cfg: ArchConfig) -> dict:
-    """Spec tree of the config's stack (JAX key names)."""
+    """Spec tree of the config's stack (JAX key names and logical axes)."""
     d = cfg.d_model
     specs: dict = {
-        "embed": ParamSpec((cfg.vocab_size, d)),
-        "final_norm": ParamSpec((d,), "ones"),
+        "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed")),
+        "final_norm": ParamSpec((d,), ("embed",), "ones"),
         "segments": [
             _stack_specs({f"p{j}": _layer_specs(cfg, ls)
                           for j, ls in enumerate(period)}, n)
@@ -237,15 +239,15 @@ def param_specs(cfg: ArchConfig) -> dict:
         ],
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((d, cfg.vocab_size))
+        specs["lm_head"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"))
     if cfg.encoder_layers:
         specs["encoder"] = {
             "layers": _stack_specs({"p0": _layer_specs(cfg, ENCODER_LAYER)},
                                    cfg.encoder_layers),
-            "final_norm": ParamSpec((d,), "ones"),
+            "final_norm": ParamSpec((d,), ("embed",), "ones"),
         }
     if cfg.vision_context:
-        specs["vision_proj"] = ParamSpec((d, d))
+        specs["vision_proj"] = ParamSpec((d, d), ("embed", None))
     return specs
 
 
@@ -441,6 +443,7 @@ class LM:
                 mixed, _ = self._self_mix(ENCODER_LAYER, p,
                                           rms_norm(x, p["ln1"], cfg.norm_eps), pos)
                 x, _ = self._mlp(ENCODER_LAYER, p, x + mixed.to(x.dtype))
+                x = constrain(x, "batch", "seq", None)
             return rms_norm(x, enc["final_norm"], cfg.norm_eps)
         if cfg.vision_context:
             x = torch.as_tensor(batch["image_embeds"], device=device)
@@ -449,8 +452,8 @@ class LM:
 
     def logits(self, params, hidden):
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        return torch.matmul(hidden.to(self.compute_dtype),
-                            head.to(self.compute_dtype))
+        out = torch.matmul(hidden.to(self.compute_dtype), head.to(self.compute_dtype))
+        return constrain(out, "batch", None, "vocab")
 
     def _final_logits(self, params, x):
         hidden = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -469,6 +472,7 @@ class LM:
             x, a = self._mlp(spec, p, x)
             if a is not None:
                 aux = aux + a
+            x = constrain(x, "batch", "seq", None)
         return x, aux
 
     def forward(self, params, batch, *, remat=None):
@@ -485,7 +489,7 @@ class LM:
         remat = (cfg.remat != "none") if remat is None else remat
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = self._embed(params, tokens)
+        x = constrain(self._embed(params, tokens), "batch", None, None)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         ctx = self._context(params, batch, tokens.device)
         context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
@@ -552,6 +556,7 @@ class LM:
                 leaves.update(zip(CACHE_CONST_KEYS, ctx_kv))
                 x = self._cross(p, x, ctx_kv)
             x, _ = self._mlp(spec, p, x)
+            x = constrain(x, "batch", "seq", None)
             kv.setdefault((seg, j), []).append(leaves)
         caches = [
             {f"p{j}": {name: torch.stack([lv[name] for lv in kv[(seg, j)]])

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed.sharding import constrain
 
 from .common import activation_fn, dense
 
@@ -109,32 +110,31 @@ def route(cfg: MoEConfig, router, xt) -> Route:
                  gate_vals.reshape(-1)[order], capacity, aux)
 
 
-def _routed_ffn(p: MoEParams, cfg: MoEConfig, xt, activation: str):
-    """One group's routed experts: ``xt`` (n, d) → ((n, d), aux)."""
-    n, d = xt.shape
-    e, k = cfg.n_experts, cfg.top_k
-    r = route(cfg, p.router, xt)
-    capacity, keep = r.capacity, r.keep
-    # dispatch: row e·capacity + slot of the flat buffer; dropped
-    # assignments go to the spare last row
-    dest = torch.where(keep, r.sorted_expert * capacity + r.slot, e * capacity)
-    buf = xt.new_zeros((e * capacity + 1, d))
+def _dispatch(r: Route, xt, buf, e: int):
+    """Write each kept assignment's token into row ``e·capacity + slot`` of
+    ``buf`` (``(e·capacity + 1, d)``; dropped assignments go to the spare
+    last row); returns the rows."""
+    dest = torch.where(r.keep, r.sorted_expert * r.capacity + r.slot, e * r.capacity)
     buf[dest] = xt[r.token_idx]
-    out_buf = _expert_ffn(buf[:-1].view(e, capacity, d), p.experts.w_gate,
-                          p.experts.w_up, p.experts.w_down, activation)
+    return dest
 
-    gathered = out_buf.reshape(e * capacity, d)[torch.where(keep, dest, 0)]
-    gathered = torch.where(keep[:, None], gathered, 0.0)
+
+def _combine(r: Route, out_buf, dest, xt, k: int):
+    """Each token's k weighted expert outputs from ``out_buf`` (E, C, d),
+    summed without atomics: assignment (token t, its j-th lowest expert)
+    lands at row t·k + j, then the k rows sum in that order."""
+    n, d = xt.shape
+    e, capacity = out_buf.shape[:2]
+    gathered = out_buf.reshape(e * capacity, d)[torch.where(r.keep, dest, 0)]
+    gathered = torch.where(r.keep[:, None], gathered, 0.0)
     weighted = (gathered * r.gates[:, None]).to(xt.dtype)
-    # combine without atomics: assignment (token t, its j-th lowest expert)
-    # lands at row t·k + j, then the k rows sum in that order
     contrib = xt.new_empty((n * k, d))
     contrib[r.token_idx * k + r.rank] = weighted
     contrib = contrib.view(n, k, d)
     out = contrib[:, 0]
     for j in range(1, k):
         out = out + contrib[:, j]
-    return out, r.aux
+    return out
 
 
 def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
@@ -147,22 +147,53 @@ def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
     over groups.  ``repro`` shards the groups over a mesh; here they run
     one after another on one device.
     """
+    if groups > 1:
+        return _moe_ffn_grouped(p, cfg, x, activation, groups)
+    b, s, d = x.shape
+    n = b * s
+    e = cfg.n_experts
+    xt = x.reshape(n, d)
+    r = route(cfg, p.router, xt)
+    buf = xt.new_zeros((e * r.capacity + 1, d))
+    dest = _dispatch(r, xt, buf, e)
+    buf = constrain(buf[:-1].view(e, r.capacity, d), "experts", None, None)
+    out_buf = _expert_ffn(buf, p.experts.w_gate, p.experts.w_up, p.experts.w_down,
+                          activation)
+    out_buf = constrain(out_buf, "experts", None, None)
+    out = _combine(r, out_buf, dest, xt, cfg.top_k)
+    if p.shared is not None:
+        out = out + _shared_ffn(p.shared, xt, activation)
+    return out.reshape(b, s, d), r.aux
+
+
+def _moe_ffn_grouped(p: MoEParams, cfg: MoEConfig, x, activation: str, groups: int):
+    """``moe_ffn`` over ``groups`` groups: the dispatch buffers stack to
+    (G, E, C, d) (every group has the same capacity) where ``repro``
+    re-shards them, and each group's expert products run on its own slice."""
     b, s, d = x.shape
     n = b * s
     if n % groups:
         raise ValueError(f"{n} tokens do not split into {groups} MoE groups")
-    xt = x.reshape(n, d)
+    e = cfg.n_experts
     n_loc = n // groups
-    parts = [_routed_ffn(p, cfg, xt[g * n_loc:(g + 1) * n_loc], activation)
-             for g in range(groups)]
-    if groups == 1:
-        out, aux = parts[0]
-    else:
-        out = torch.cat([o for o, _ in parts])
-        aux = torch.stack([a for _, a in parts]).mean()
+    xg = constrain(x.reshape(groups, n_loc, d), "moe_groups", None, None)
+    routes = [route(cfg, p.router, xg[g]) for g in range(groups)]
+    capacity = routes[0].capacity
+    bufs = xg.new_zeros((groups, e * capacity + 1, d))
+    dests = [_dispatch(r, xg[g], bufs[g], e) for g, r in enumerate(routes)]
+    buf = bufs[:, :-1].view(groups, e, capacity, d)
+    buf = constrain(buf, "moe_groups", None, None, None)
+    buf = constrain(buf, None, "experts", None, None)
+    out_buf = torch.stack([_expert_ffn(buf[g], p.experts.w_gate, p.experts.w_up,
+                                       p.experts.w_down, activation)
+                           for g in range(groups)])
+    out_buf = constrain(out_buf, None, "experts", None, None)
+    out_buf = constrain(out_buf, "moe_groups", None, None, None)
+    out = torch.cat([_combine(r, out_buf[g], dests[g], xg[g], cfg.top_k)
+                     for g, r in enumerate(routes)])
     if p.shared is not None:
-        out = out + _shared_ffn(p.shared, xt, activation)
-    return out.reshape(b, s, d), aux
+        out = out + _shared_ffn(p.shared, x.reshape(n, d), activation)
+    return out.reshape(b, s, d), torch.stack([r.aux for r in routes]).mean()
 
 
 def _shared_ffn(shared, xt, activation: str):

@@ -58,14 +58,20 @@ def save_checkpoint(path: str | Path, tree: Any, *, extra_meta: dict | None = No
     tmp.rename(root / "MANIFEST.json")   # atomic publish
 
 
-def restore_checkpoint(path: str | Path, like: Any, *, verify: bool = False,
-                       device=None) -> Any:
+def restore_checkpoint(path: str | Path, like: Any, *, shardings: Any = None,
+                       verify: bool = False, device=None) -> Any:
     """Restore into the structure of ``like`` (leaves with a ``shape``).
 
     Each leaf comes back as a tensor in its dtype on disk, on ``device``
     (the CPU when None); a leaf missing from the checkpoint or of another
     shape than ``like``'s raises, and ``verify`` checks every file's
     sha256 against the manifest.
+
+    ``shardings`` (the elastic re-shard path) is a tree with ``like``'s
+    structure of ``(mesh, placements)`` pairs (``sharding.safe_sharding``,
+    ``shardings_for``): each leaf comes back as
+    ``distribute_tensor(leaf, mesh, placements)`` on the mesh's device
+    type, whatever mesh wrote the checkpoint.
     """
     root = Path(path)
     manifest = json.loads((root / "MANIFEST.json").read_text())
@@ -88,7 +94,15 @@ def restore_checkpoint(path: str | Path, like: Any, *, verify: bool = False,
         x = to_torch(arr).reshape(arr.shape)      # a 0-d leaf stays 0-d
         return x if device is None else x.to(device)
 
-    return tree_map_with_path(load, like)
+    if shardings is None:
+        return tree_map_with_path(load, like)
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(path, leaf, sharding):
+        mesh, placements = sharding
+        return distribute_tensor(load(path, leaf).to(mesh.device_type), mesh, placements)
+
+    return tree_map_with_path(place, like, shardings)
 
 
 def latest_step(dirpath: str | Path) -> Optional[int]:

@@ -1,8 +1,9 @@
 """Import isolation of the PyTorch port: ``src/repro_torch/``,
 ``chip_smoke.py`` and ``decode_turns.py`` import neither JAX nor the JAX
 package, and the port's
-serving (sharded store and distribution layer included) and analytics
-modules import with ``jax`` blocked."""
+serving (sharded store and distribution layer included), analytics,
+sharding, multipod, mesh and checkpoint modules import with ``jax``
+blocked."""
 import ast
 import os
 import subprocess
@@ -46,6 +47,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.serve.shard_store, repro_torch.distributed.compression\n"
             "import repro_torch.distributed.fault, repro_torch.distributed.transport\n"
             "import repro_torch.core.engine, repro_torch.data, repro_torch.launch.analytics\n"
+            "import repro_torch.distributed.sharding, repro_torch.distributed.multipod\n"
+            "import repro_torch.launch.mesh, repro_torch.train.checkpoint\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
