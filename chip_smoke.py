@@ -218,6 +218,18 @@ printed) and runs:
      the step time (CUDA events, the first step apart), the exchange's
      own time, retries (none) and the reckoned and measured peak memory.
      Neither launches an extend or decode kernel.
+ 17. introspection, after phase 16: (a) the registry's parameter and
+     AdamW structs for phase 15 (a)'s config on a world-size-1 NCCL mesh
+     equal the card's trees leaf for leaf (path, per-device shape, dtype,
+     bytes), and the dry run's argument + eager temp bytes of one step
+     (a fake CPU trace) print beside phase 15 (a)'s peak memory; (b)
+     ``launch/op_analysis.py``'s counter on phase 15 (a)'s step on the
+     card and on its fake CPU trace (FLOPs equal; ``train_mfu`` over the
+     counted FLOPs beside 6·N·D's), and on phase 4's model's 128-token
+     extend and decode step (FLOPs and each kernel's formula equal card
+     and CPU, both kernels launched once a layer); (c) ``python -m
+     repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k`` in
+     a subprocess: its seconds, per-device bytes and FLOPs.
 
 Phase 2 also checks the three analytics kernels (linreg statistics,
 Naive Bayes grouped statistics, chunked logistic SGD) against their plain
@@ -2598,6 +2610,9 @@ TRAIN_LAYERS = 2
 #: step of 1e-3 moves a logit by up to d x lr (the loss rose from 13.2 to 46.6
 #: in one step on the card), at mamba2-130m's d 768 it is safe
 TRAIN_FULL = dict(steps=6, batch=8, seq=1024, warmup=2)
+#: phase 15's measured step per config (step s, peak bytes, model FLOPs,
+#: train_mfu), which phase 17 reads
+TRAIN_INFO: dict = {}
 TRAIN_LR = {"deepseek-67b": 2e-5, "mamba2-130m": 1e-3}
 #: the weights each token's forward multiplies (the embedding is a gather
 #: unless tied to the head)
@@ -2788,6 +2803,8 @@ def train_full_width(dev, cfg, label: str, *, ckpt: bool) -> list[float]:
         times = [a.elapsed_time(b) / 1e3 for a, b in zip(starts, ends)]
         steady = float(np.mean(times[1:]))
         flops, formula = model_flops(model, state.params, tokens, t["seq"])
+        TRAIN_INFO[cfg.name] = {"step_s": steady, "peak": peak, "model_flops": flops,
+                                "mfu": flops / steady / PEAK_FLOPS[torch.bfloat16]}
         losses = [h["loss"] for h in hist]
         print(f"  {label}: {n_params / 1e9:.4f} B parameters ({cfg.param_dtype}, compute "
               f"{cfg.compute_dtype}), {cfg.optimizer}, remat {cfg.remat}, {k} microbatches, "
@@ -3069,6 +3086,236 @@ def distribution_phase(dev, phase15_losses: list[float]) -> None:
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: introspection on the card
+# ---------------------------------------------------------------------------
+
+#: phase 17 (b)'s serving counts: phase 4's model, a 2048-token prefix, one
+#: 128-token extend chunk at 2048 and one decode step at 2176, in a cache of
+#: capacity 2304
+INTRO_PREFIX, INTRO_CHUNK, INTRO_CAP = 2048, 128, 2304
+
+
+def fake_train_count(cfg, *, memory: bool):
+    """Phase 15 (a)'s training step traced on fake CPU tensors, no mesh:
+    (op_analysis' result, argument bytes).  Structs from the registry."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.models.common import struct_bytes, tree_leaves
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import make_optimizer
+
+    t = TRAIN_FULL
+    b = get_bundle(cfg)
+    with FakeTensorMode():
+        params = b.param_structs(None, None, device="cpu")
+        opt = make_optimizer(cfg.optimizer)
+        state = b.opt_state_structs(opt, params, None, None, device="cpu")
+        batch = b.train_batch_structs(ShapeSpec("phase 15", t["seq"], t["batch"], "train"),
+                                      None, None, device="cpu")
+        args = sum(struct_bytes(x) for x in tree_leaves([params, state, batch]))
+        step, _ = make_train_step(b.model, opt, microbatches=cfg.train_microbatches)
+        with OpCounter(memory=memory) as c:
+            step(params, state, batch, 0)
+    return c.result(), args
+
+
+def registry_on_the_card(dev, cfg) -> None:
+    """Phase 17 (a): the registry's structs on a world-size-1 mesh against
+    the real parameter and AdamW trees of phase 15 (a)'s config, leaf for
+    leaf; the dry run's bytes for one step against phase 15 (a)'s peak."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.multipod import BACKENDS
+    from repro_torch.distributed.sharding import make_rules, strip_axis
+    from repro_torch.models.common import struct_bytes, struct_shape, tree_items_sorted
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.train.optim import make_optimizer
+
+    tmp = Path(tempfile.mkdtemp(prefix="repro_torch_intro_"))
+    dist.init_process_group(BACKENDS["cuda"], init_method=f"file://{tmp / 'rendezvous'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("pod", "data"))
+        rules = strip_axis(make_rules(multi_pod=True, fsdp=True), "model")
+        b = get_bundle(cfg)
+        opt = make_optimizer(cfg.optimizer)
+        ps = b.param_structs(rules, mesh)
+        os_ = b.opt_state_structs(opt, ps, rules, mesh)
+        model = LM(cfg, device=dev)
+        params, state = full_width_state(model, dev)
+        for label, structs, real in (("parameter", ps, params), ("optimizer-state", os_, state)):
+            a, r = tree_items_sorted(structs), tree_items_sorted(real)
+            same = [pa == pr and struct_shape(x) == tuple(y.shape) and x.dtype == y.dtype
+                    and struct_bytes(x) == y.numel() * y.element_size()
+                    for (pa, x), (pr, y) in zip(a, r)]
+            n_bytes = sum(struct_bytes(x) for _, x in a)
+            print(f"  (a) {label} structs on mesh {tuple(mesh.shape)}: {sum(same)} of {len(r)} "
+                  f"leaves equal the card's in path, per-device shape, dtype and bytes "
+                  f"({n_bytes / 1e9:.3f} GB)")
+            check(len(a) == len(r) and all(same), f"17 (a): {label} structs differ from the "
+                                                  f"card's tree")
+        del params, state, model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    res, args = fake_train_count(cfg, memory=True)
+    peak = TRAIN_INFO[cfg.name]["peak"]
+    need = args + res["peak_bytes"]
+    print(f"  (a) dry-run bytes of one phase 15 (a) step (fake trace, {time.perf_counter() - t0:.1f}"
+          f" s): arguments {args / 1e9:.3f} GB + eager temp peak {res['peak_bytes'] / 1e9:.3f} GB "
+          f"= {need / 1e9:.3f} GB against phase 15 (a)'s max_memory_allocated "
+          f"{peak / 1e9:.3f} GB: ratio {need / peak:.4f}")
+    check(0 < need and res["flops"] > 0, "17 (a): the dry run counted nothing")
+
+
+def step_counts_on_the_card(dev, cfg) -> None:
+    """Phase 17 (b), training: one phase 15 (a) step counted on the card
+    and traced on fake CPU tensors; the FLOPs must be equal."""
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.models.lm import LM
+    from repro_torch.train.loop import make_train_step
+
+    model = LM(cfg, device=dev)
+    params, state = full_width_state(model, dev)
+    batch = pipeline_batches(cfg, dev, 1)[0]
+    step, _ = make_train_step(model, microbatches=cfg.train_microbatches)
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    with OpCounter() as c:
+        step(params, state, batch, 0)
+    torch.cuda.synchronize(dev)
+    card = c.result()
+    counted_s = time.perf_counter() - t0
+    del params, state, model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu, _ = fake_train_count(cfg, memory=False)
+    info = TRAIN_INFO[cfg.name]
+    print(f"  (b) training step, phase 15 (a): card {card['flops']:.6e} FLOPs ({counted_s:.1f} s "
+          f"counted), CPU fake trace {cpu['flops']:.6e} ({time.perf_counter() - t0:.1f} s); "
+          f"op bytes card {card['op_bytes']:.6e}, CPU {cpu['op_bytes']:.6e}")
+    print(f"      train_mfu over the counted FLOPs: {card['flops']:.4e} / "
+          f"{info['step_s']:.4f} s / 989e12 = "
+          f"{card['flops'] / info['step_s'] / PEAK_FLOPS[torch.bfloat16]:.4f}, against "
+          f"6·N·D's {info['mfu']:.4f} ({info['model_flops']:.4e} model FLOPs); counted / "
+          f"model {card['flops'] / info['model_flops']:.4f}")
+    check(card["flops"] == cpu["flops"], f"17 (b): training FLOPs card {card['flops']} vs CPU "
+                                         f"{cpu['flops']}")
+    check(kernel_launches() == before, "17 (b): training launched an attention kernel")
+
+
+def serving_counts_on_the_card(dev) -> None:
+    """Phase 17 (b), serving: phase 4's model, one extend chunk and one
+    decode step counted on the card (both kernels, by their formulas) and
+    traced on fake CPU tensors (their plain versions, by the same
+    formulas; ``pos`` stays a real tensor, so the decode formula reads its
+    live length); the FLOPs must be equal, and each kernel must have
+    launched once a layer."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.extend_attention import kernel as ek
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.models.common import make_struct, tree_map_with_path
+    from repro_torch.models.lm import LM
+
+    cfg = dataclasses.replace(get_config("deepseek-67b"), n_layers=FULL_LAYERS)
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    doc = np.random.default_rng(0).integers(0, cfg.vocab_size, 4096).astype(np.int32)
+    toks = torch.from_numpy(doc[:INTRO_PREFIX + INTRO_CHUNK + 1])[None]
+    with torch.no_grad():
+        _, caches = model.prefill(params, {"tokens": toks[:, :INTRO_PREFIX].to(dev)})
+        caches = tree_map_with_path(lambda _, x: torch.nn.functional.pad(
+            x, (0, 0, 0, 0, 0, INTRO_CAP - INTRO_PREFIX)), caches)
+    chunk = toks[:, INTRO_PREFIX:INTRO_PREFIX + INTRO_CHUNK]
+    last = toks[:, INTRO_PREFIX + INTRO_CHUNK:]
+    at = INTRO_PREFIX + INTRO_CHUNK
+
+    def steps(p, c, device):
+        model.prefill_extend(p, c, chunk.to(device), INTRO_PREFIX)
+        model.decode_step(p, c, last.to(device),
+                          torch.tensor([at], dtype=torch.int32, device=device))
+
+    ek.KERNEL.launches = 0
+    dk.KERNEL.launches = 0
+    with torch.no_grad(), OpCounter() as c:
+        steps(params, caches, dev)
+    torch.cuda.synchronize(dev)
+    card = c.result()
+    launches = {"extend_attention": ek.KERNEL.launches, "decode_attention": dk.KERNEL.launches}
+    shapes = tree_map_with_path(lambda _, x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                                caches)
+    del params, caches
+    torch.cuda.empty_cache()
+    with FakeTensorMode(allow_non_fake_inputs=True), torch.no_grad():
+        fparams = tree_map_with_path(lambda _, s: make_struct(s.shape, model.param_dtype,
+                                                              device="cpu"), model.specs)
+        fcaches = tree_map_with_path(lambda _, m: make_struct(m.shape, m.dtype, device="cpu"),
+                                     shapes)
+        with OpCounter() as c:
+            steps(fparams, fcaches, "cpu")
+    cpu = c.result()
+    print(f"  (b) phase 4's model ({FULL_LAYERS} layers, bf16), a {INTRO_CHUNK}-token extend at "
+          f"{INTRO_PREFIX} and a decode step at {at}, capacity {INTRO_CAP}: card "
+          f"{card['flops']:.6e} FLOPs, CPU fake trace {cpu['flops']:.6e}; kernels by formula: "
+          f"card {card['kernels']}, CPU {cpu['kernels']}; launches {launches}")
+    check(card["flops"] == cpu["flops"], f"17 (b): serving FLOPs card {card['flops']} vs CPU "
+                                         f"{cpu['flops']}")
+    check(card["kernels"] == cpu["kernels"], "17 (b): the kernels' formulas differ card vs CPU")
+    check(launches == {"extend_attention": FULL_LAYERS, "decode_attention": FULL_LAYERS}
+          and card["kernels"]["extend_attention"]["calls"] == FULL_LAYERS
+          and card["kernels"]["decode_attention"]["calls"] == FULL_LAYERS,
+          f"17 (b): launches {launches}, counted {card['kernels']}")
+
+
+def dryrun_cell() -> None:
+    """Phase 17 (c): one full-size dry-run cell, in a subprocess (this
+    process holds the card; the dry run starts its own fake group)."""
+    out = Path(tempfile.mkdtemp(prefix="repro_torch_dryrun_"))
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "deepseek-67b",
+             "--shape", "train_4k", "--out", str(out)],
+            cwd=ROOT, env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"17 (c): the dry run failed: {proc.stderr[-2000:]}")
+        rec = json.loads((out / "deepseek-67b__train_4k__single.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    m, la = rec["memory"], rec["loop_aware"]
+    print(f"  (c) python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k: "
+          f"{wall:.1f} s wall (trace {rec['seconds']['trace']:.1f} s, build "
+          f"{rec['seconds']['build']:.1f} s) on {rec['devices']} fake ranks: per device "
+          f"arguments {m['argument_bytes'] / 1e9:.3f} GB, temp {m['temp_bytes'] / 1e9:.3f} GB, "
+          f"{la['flops']:.4e} FLOPs, collectives {la['collective_bytes'] / 1e9:.1f} GB")
+    check(la["flops"] > 0 and m["argument_bytes"] > 0, "17 (c): the dry run counted nothing")
+
+
+def introspection_phase(dev) -> None:
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("deepseek-67b"), n_layers=TRAIN_LAYERS)
+    registry_on_the_card(dev, cfg)
+    torch.cuda.empty_cache()
+    step_counts_on_the_card(dev, cfg)
+    torch.cuda.empty_cache()
+    serving_counts_on_the_card(dev)
+    torch.cuda.empty_cache()
+    dryrun_cell()
 
 
 # ---------------------------------------------------------------------------
@@ -4088,6 +4335,8 @@ def main() -> int:
     phase15_losses = training_phase(dev)
     print("[16] distribution: a world-size-1 NCCL mesh")
     distribution_phase(dev, phase15_losses)
+    print("[17] introspection on the card: the registry, the step counter, a dry run")
+    introspection_phase(dev)
 
     print("[7] analytics engine (200K x 10): card vs CPU")
     analytics_parity(dev)

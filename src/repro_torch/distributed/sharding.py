@@ -19,6 +19,12 @@ axes signature in the context's counter.  It never changes a value.
 
 A mesh is a ``DeviceMesh`` (its ``mesh_dim_names`` and sizes) or any object
 whose ``shape`` maps dimension names to sizes.
+
+Traced as a sharded program (``DTensor`` s inside a context, as the dry run
+does), a body ``DTensor`` cannot shard runs on each rank's shards through
+:func:`local_region` (``local_map`` with placements from logical axes),
+with :func:`all_reduce_over` for the sums it must share; on plain tensors
+a region is the body itself.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ from collections import Counter
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Union
+
+import torch
 
 Axis = Union[str, tuple, None]
 
@@ -166,16 +174,7 @@ def safe_spec(shape: tuple, axes: tuple, rules: ShardingRules, mesh) -> P:
             if entries[j] is None and axes[j] is None and shape[j] % _axis_size(sizes, e) == 0:
                 entries[j] = e
                 break
-    seen: set = set()
-    for i, e in enumerate(entries):
-        if e is None:
-            continue
-        names = e if isinstance(e, tuple) else (e,)
-        if any(n in seen for n in names):
-            entries[i] = None
-        else:
-            seen.update(names)
-    return P(*entries)
+    return _dedupe(P(*entries))
 
 
 def placements(spec: P, mesh) -> tuple:
@@ -214,6 +213,181 @@ def constrain(x, *axes: Optional[str]):
         return x.redistribute(mesh, placements(safe_spec(tuple(x.shape), axes, rules, mesh),
                                                mesh))
     return x
+
+
+#: a ``local_region`` argument spec: the ``DTensor`` keeps its placements
+KEEP = "keep"
+
+
+def strict_entries(shapes_axes, rules: ShardingRules, mesh) -> dict:
+    """Logical name → mesh entry for the names of ``shapes_axes`` (pairs of
+    a shape and its logical axes): a name's rule where it divides every
+    dimension that bears the name, else None (replicated).  Unlike
+    :func:`safe_spec` nothing is re-homed: a local function sees whole
+    heads, rows and experts."""
+    sizes = mesh_shape(mesh)
+    out: dict = {}
+    for shape, axes in shapes_axes:
+        for n, a in zip(shape, axes):
+            if a is None:
+                continue
+            e = out.get(a, rules.rules.get(a))
+            if e is not None and n % _axis_size(sizes, e):
+                e = None
+            out[a] = e
+    return out
+
+
+def local_region(fn, in_axes, out_axes, plain=None):
+    """``fn`` over one rank's shards when a sharded program is traced and an
+    argument is a ``DTensor``; ``fn`` itself otherwise (one thread-local
+    read on plain tensors).
+
+    ``in_axes`` has one entry per positional argument: a tuple of logical
+    axes, :data:`KEEP` (a ``DTensor`` keeps its placements), the index of
+    another argument (take its placements), or None (not a tensor); names
+    map through :func:`strict_entries`.  ``out_axes`` has one entry per
+    output: logical axes, a tuple of placements as is, or a function of
+    the inputs' placements (a list) giving them.  Plain tensor arguments
+    are taken as replicated.  Runs under
+    ``torch.distributed.tensor.experimental.local_map`` (:func:`run_local`);
+    keyword arguments pass through.  With no ``DTensor`` argument ``plain``
+    (default ``fn``) runs instead."""
+    plain = fn if plain is None else plain
+
+    def run(*args, **kwargs):
+        st = getattr(_ctx, "state", None)
+        if st is None:
+            return plain(*args, **kwargs)
+        from torch.distributed.tensor import DTensor
+
+        if not any(isinstance(a, DTensor) for a in args):
+            return plain(*args, **kwargs)
+        rules, mesh, _ = st
+        named = [(tuple(a.shape), ax) for a, ax in zip(args, in_axes)
+                 if isinstance(ax, tuple) and isinstance(a, torch.Tensor)]
+        entries = strict_entries(named, rules, mesh)
+
+        def pl(axes):
+            spec = P(*(entries.get(a) if a is not None else None for a in axes))
+            return placements(_dedupe(spec), mesh)
+
+        ins, targs = [], []
+        for a, ax in zip(args, in_axes):
+            a = as_dtensor(a, mesh)
+            if not isinstance(a, torch.Tensor):
+                ins.append(None)
+            elif isinstance(ax, int):
+                ins.append(args[ax].placements)
+            else:
+                ins.append(a.placements if ax == KEEP else pl(ax))
+            targs.append(a)
+        outs = tuple(None if o is None else o(ins) if callable(o)
+                     else tuple(o) if o and not isinstance(o[0], (str, type(None), tuple))
+                     else pl(o) for o in out_axes)
+        return run_local(fn, mesh, ins, outs, *targs, **kwargs)
+
+    return run
+
+
+def as_dtensor(a, mesh):
+    """A plain tensor as a ``DTensor`` replicated on ``mesh``; anything
+    else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(a, torch.Tensor) and not isinstance(a, DTensor):
+        return DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return a
+
+
+def run_local(fn, mesh, ins, outs, *args, **kwargs):
+    """``fn`` on the local shards of ``args`` laid out as ``ins`` (one
+    placements tuple per argument, None for a non-tensor), its outputs
+    taken as laid out by ``outs``.  An input's gradient is a partial sum
+    over each mesh dimension it is replicated on while the work is split
+    there (each rank used it for its part of the work)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    split = [False] * mesh.ndim
+    for p in list(ins) + list(outs):
+        if p is not None:
+            split = [sp or not q.is_replicate() for sp, q in zip(split, p)]
+    # one entry per output (a single output's placements, too, in a tuple);
+    # a function of no output returns None, a leaf of no placements
+    wrapped = local_map(fn, out_placements=tuple(outs) or (None,),
+                        in_placements=tuple(ins), in_grad_placements=tuple(
+                            None if p is None else _grad_layout(p, split) for p in ins),
+                        redistribute_inputs=True, device_mesh=mesh)
+    return wrapped(*args, **kwargs)
+
+
+def _grad_layout(pl: tuple, split: list) -> tuple:
+    """The gradient of an input laid out as ``pl``: partial sums over each
+    mesh dimension it is replicated on while the work is split there (each
+    rank used it for its part), else its own layout."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if p.is_replicate() and sp else p for p, sp in zip(pl, split))
+
+
+def _dedupe(spec: P) -> P:
+    """``spec`` with a mesh dimension named twice kept at its first entry."""
+    seen: set = set()
+    out = []
+    for e in spec:
+        names = () if e is None else (e if isinstance(e, tuple) else (e,))
+        if any(n in seen for n in names):
+            out.append(None)
+        else:
+            seen.update(names)
+            out.append(e)
+    return P(*out)
+
+
+def all_reduce_over(t, op: str, entry):
+    """``t`` reduced (``"sum"`` or ``"max"``) over the mesh dimensions of
+    ``entry`` of this thread's sharded program, one native functional
+    all-reduce per dimension; ``t`` itself for None.  The result is the
+    same on every rank, so a sum's gradient is the result's own (what each
+    rank's replicated use of it gives); a max carries none."""
+    if entry is None:
+        return t
+    _, mesh = active()
+    names = entry if isinstance(entry, tuple) else (entry,)
+    groups = tuple(mesh.get_group(name).group_name for name in names)
+    if op == "sum" and t.requires_grad:
+        return _SumReplicated.apply(t, groups)
+    return _all_reduce(t.detach() if op == "max" else t, op, groups)
+
+
+def _all_reduce(t, op: str, groups):
+    for group in groups:
+        t = torch.ops._c10d_functional.wait_tensor(
+            torch.ops._c10d_functional.all_reduce(t, op, group))
+    return t
+
+
+class _SumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups):
+        return _all_reduce(t, "sum", groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def mesh_coords(mesh, entry) -> tuple:
+    """(this rank's index, count) along the mesh dimensions of ``entry`` (a
+    name or a tuple of names, major first); (0, 1) for None."""
+    if entry is None:
+        return 0, 1
+    idx, n = 0, 1
+    for name in (entry if isinstance(entry, tuple) else (entry,)):
+        size = mesh_shape(mesh)[name]
+        idx = idx * size + mesh.get_local_rank(name)
+        n *= size
+    return idx, n
 
 
 def _map_axes(fn, tree):

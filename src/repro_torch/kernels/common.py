@@ -10,9 +10,18 @@ the rule.
 """
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+#: this thread's work counter (``launch/op_analysis.py::OpCounter``), read
+#: by every kernel wrapper as ``getattr(WORK, "counter", None)``: while one
+#: is active a wrapper reports the FLOPs and bytes of its call to it and
+#: runs its body through ``counter.kernel``
+WORK = threading.local()
 
 
 def cdiv(x: int, m: int) -> int:

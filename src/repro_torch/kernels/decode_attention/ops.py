@@ -20,10 +20,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import uses_kernel
+from repro_torch.kernels.common import WORK, cdiv, uses_kernel
 
 from .kernel import decode_attention_cuda
-from .ref import decode_attention_blocked
+from .ref import DECODE_BLOCK, decode_attention_blocked, live_blocks
 
 
 def write_kv(cache_k, cache_v, k_new, v_new, pos):
@@ -40,6 +40,22 @@ def write_kv(cache_k, cache_v, k_new, v_new, pos):
     return cache_k, cache_v
 
 
+def decode_work(q, k, v, *, pos) -> tuple:
+    """(FLOPs, bytes) of one call.  FLOPs: the plain version's two
+    products over its live blocks, 2·B·H·(hd + hd_v)·(blocks · block); a
+    fake ``pos`` has no values, so its cache counts as full.  Bytes: q,
+    pos and the output once, K and V over the live blocks' positions."""
+    b, _, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
+    span = live_blocks(pos, cdiv(t, DECODE_BLOCK)) * DECODE_BLOCK
+    rows = min(span, t)
+    nbytes = (q.numel() * q.element_size() + pos.numel() * pos.element_size()
+              + b * h * hd_v * q.element_size()
+              + b * rows * kv * (hd * k.element_size() + hd_v * v.element_size()))
+    return 2 * b * h * (hd + hd_v) * span, nbytes
+
+
 def decode_attention(q, k, v, *, pos):
     """Single-query grouped attention over a padded cache (see ref.py).
 
@@ -47,6 +63,14 @@ def decode_attention(q, k, v, *, pos):
     row b attends to cache positions ``≤ pos[b]``.  Returns (B, 1, H, hd)
     in q's dtype.
     """
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("decode_attention", decode_work, _decode_attention, q, k, v,
+                              pos=pos)
+    return _decode_attention(q, k, v, pos=pos)
+
+
+def _decode_attention(q, k, v, *, pos):
     b, _, h, hd = q.shape
     kv = k.shape[2]
     if not uses_kernel(q):

@@ -24,6 +24,18 @@ NEG_INF = -1e30
 DECODE_BLOCK = 256        # fixed KV block; independent of padded capacity
 
 
+def live_blocks(pos, n_blocks: int, block: int = DECODE_BLOCK) -> int:
+    """``max(pos) // block + 1``, the blocks some row reaches, read from
+    ``pos`` (a device sync on the card); a fake ``pos`` has no values and
+    gives all ``n_blocks``."""
+    from torch._subclasses.fake_tensor import FakeTensor, unset_fake_temporarily
+
+    if isinstance(pos, FakeTensor) or pos.device.type == "meta":
+        return n_blocks
+    with unset_fake_temporarily():
+        return int(pos.max()) // block + 1
+
+
 def decode_attention_blocked(q, k, v, pos, *, block: int = DECODE_BLOCK):
     """Grouped single-query attention, online softmax over KV blocks.
 
@@ -43,7 +55,7 @@ def decode_attention_blocked(q, k, v, pos, *, block: int = DECODE_BLOCK):
     m = torch.full((b, kv, g), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kv, g), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, kv, g, hd_v), dtype=torch.float32, device=q.device)
-    n_live = int(pos.max()) // block + 1
+    n_live = live_blocks(pos, t_pad // block, block)
     for i in range(n_live):
         # contiguous per-block copies: the reduction sees the same memory
         # layout whatever the padded capacity T is

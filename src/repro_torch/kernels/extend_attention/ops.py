@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import uses_kernel
+from repro_torch.kernels.common import WORK, uses_kernel
 
 from .kernel import extend_attention_cuda
 from .ref import extend_attention_ref
@@ -31,6 +31,26 @@ def extend_attention(q, k, v, *, t_real=None):
     (int or 0-d integer tensor, default: the full KV length) marks the
     valid KV prefix of a padded cache; on the card it stays on the device.
     """
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("extend_attention", extend_work, _extend_attention, q, k, v,
+                              t_real=t_real)
+    return _extend_attention(q, k, v, t_real=t_real)
+
+
+def extend_work(q, k, v, *, t_real=None) -> tuple:
+    """(FLOPs, bytes) of one call.  FLOPs: the plain version's two
+    products over the whole padded length T, 2·B·nb·H·T·(hd + hd_v).  Bytes:
+    q, K, V and the output once."""
+    b, nb, h, hd = q.shape
+    t = k.shape[1]
+    hd_v = v.shape[-1]
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) \
+        + b * nb * h * hd_v * q.element_size()
+    return 2 * b * nb * h * t * (hd + hd_v), nbytes
+
+
+def _extend_attention(q, k, v, *, t_real=None):
     if t_real is None:
         t_real = k.shape[1]
     if not uses_kernel(q):

@@ -11,7 +11,7 @@ version (:mod:`.ref`); see :mod:`repro_torch.kernels.common`.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.common import uses_kernel
+from repro_torch.kernels.common import WORK, uses_kernel
 
 from .kernel import zt_z_cuda
 from .ref import linreg_stats_ref, zt_z_ref
@@ -28,10 +28,27 @@ def _contiguous(t):
     return t if t.is_contiguous() else t.contiguous()
 
 
+def stats_work(X, y, **_) -> tuple:
+    """(FLOPs, bytes) of one call.  FLOPs: the plain version's one matrix
+    product XᵀX, 2·n·d² (its Xᵀy and yᵀy are a matrix-vector and a vector
+    product, which ``FlopCounterMode`` does not count); bytes: X and y read
+    once, G (d+1)² fp32 written once."""
+    n, d = X.shape
+    return 2 * n * d * d, (X.numel() * X.element_size() + y.numel() * y.element_size()
+                           + (d + 1) ** 2 * 4)
+
+
 def zt_z(X, y):
     """``G = [X | y]ᵀ[X | y]`` (d+1, d+1) fp32 in one pass over X (n, d) and
     y (n,), fp32 or bf16: ``G[:d, :d]`` is XᵀX, ``G[:d, d]`` Xᵀy and
     ``G[d, d]`` yᵀy."""
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("linreg_stats", stats_work, _zt_z, X, y)
+    return _zt_z(X, y)
+
+
+def _zt_z(X, y):
     y = _check(X, y)
     if not uses_kernel(X):
         return zt_z_ref(X, y)
@@ -41,6 +58,14 @@ def zt_z(X, y):
 def linreg_stats(X, y, *, with_yty: bool = False):
     """Fused ``A = XᵀX``, ``B = Xᵀy`` (optionally ``yᵀy``) in one pass over
     X (n, d) and y (n,), fp32 or bf16; fp32 results."""
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("linreg_stats", stats_work, _linreg_stats, X, y,
+                              with_yty=with_yty)
+    return _linreg_stats(X, y, with_yty=with_yty)
+
+
+def _linreg_stats(X, y, *, with_yty: bool = False):
     y = _check(X, y)
     if not uses_kernel(X):
         A, B, yty = linreg_stats_ref(X, y)

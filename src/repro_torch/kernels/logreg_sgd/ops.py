@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import uses_kernel
+from repro_torch.kernels.common import WORK, round_up, uses_kernel
 
 from .kernel import LABELS, check_chunk, sgd_segment_cuda
 from .ref import sgd_segment_ref
@@ -26,6 +26,26 @@ def logreg_sgd_segment(X, y, *, chunk_size: int, lam: float = 1e-3, lr: float = 
     ``[c·l, min((c+1)·l, n))`` with l = ``chunk_size``, and a short last
     chunk runs its own ⌈m/batch⌉ steps.  Returns (⌈n/l⌉, d+1) fp32
     weights, bias last."""
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("logreg_sgd", segment_work, _segment, X, y,
+                              chunk_size=chunk_size, lam=lam, lr=lr, batch=batch)
+    return _segment(X, y, chunk_size=chunk_size, lam=lam, lr=lr, batch=batch)
+
+
+def segment_work(X, y, *, chunk_size: int, batch: int = 64, **_) -> tuple:
+    """(FLOPs, bytes) of one call.  FLOPs: the plain version's two products
+    per minibatch step (the logits and the weight gradient, 2·batch·d
+    each), over every chunk's rows padded to a batch multiple; bytes: X and
+    y read once, the (chunks, d+1) fp32 weights written once."""
+    n, d = X.shape
+    full, rest = divmod(n, chunk_size)
+    rows = full * round_up(chunk_size, batch) + round_up(rest, batch)
+    chunks = full + (rest > 0)
+    return 4 * rows * d, (n * d * 4 + y.numel() * 4 + chunks * (d + 1) * 4)
+
+
+def _segment(X, y, *, chunk_size: int, lam: float, lr: float, batch: int):
     check_chunk(chunk_size, X.shape[1], batch)
     X = X.to(torch.float32)
     if y.dtype not in LABELS:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import uses_kernel
+from repro_torch.kernels.common import WORK, uses_kernel
 
 from .kernel import grouped_stats_cuda
 from .ref import grouped_stats_ref, nb_stats_ref
@@ -27,10 +27,27 @@ def _contiguous(t):
     return t if t.is_contiguous() else t.contiguous()
 
 
+def grouped_work(X, y, n_classes: int) -> tuple:
+    """(FLOPs, bytes) of one call.  FLOPs: the plain version's two one-hot
+    products (S and SS), 2 · 2·C·n·d; bytes: X and y read once, G
+    (C, 1 + 2d) fp32 written once."""
+    n, d = X.shape
+    return 4 * n_classes * n * d, (X.numel() * X.element_size()
+                                   + y.numel() * y.element_size()
+                                   + n_classes * (1 + 2 * d) * 4)
+
+
 def grouped_stats(X, y, n_classes: int):
     """``G`` (C, 1 + 2d) fp32 from one fused pass over X (n, d) float32 with
     labels y (n,): ``G[:, 0]`` the class counts, ``G[:, 1:1+d]`` S and
     ``G[:, 1+d:]`` SS."""
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("nb_stats", grouped_work, _grouped_stats, X, y, n_classes)
+    return _grouped_stats(X, y, n_classes)
+
+
+def _grouped_stats(X, y, n_classes: int):
     y = _labels(y)
     if not uses_kernel(X):
         return grouped_stats_ref(X, y, n_classes)
@@ -40,6 +57,13 @@ def grouped_stats(X, y, n_classes: int):
 def nb_stats(X, y, n_classes: int):
     """Per-class ``(counts, S, SS)`` from one fused pass over X (n, d)
     float32 with labels y (n,); fp32 results."""
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("nb_stats", grouped_work, _nb_stats, X, y, n_classes)
+    return _nb_stats(X, y, n_classes)
+
+
+def _nb_stats(X, y, n_classes: int):
     if not uses_kernel(X):
         return nb_stats_ref(X, _labels(y), n_classes)
     d = X.shape[1]

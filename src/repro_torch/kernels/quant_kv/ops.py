@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import uses_kernel
+from repro_torch.kernels.common import WORK, uses_kernel
 
 from .kernel import MAX_LEAVES, dequant_cuda, segment_layout
 from .ref import dequant_blocks_ref, dequantize_leaf_ref
@@ -35,8 +35,25 @@ def _one(values, n: int, what: str):
     return values[0]
 
 
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def dequant_blocks_work(q, scales) -> tuple:
+    """(FLOPs, bytes) of one call: no product (0 FLOPs, as the plain
+    version's count); q and scales read once, the fp32 output written once."""
+    return 0, _nbytes(q, scales) + q.numel() * 4
+
+
 def dequantize_blocks(q, scales):
     """``q (G, rows, cols)`` int8 × ``scales (G,)`` → fp32."""
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("quant_kv", dequant_blocks_work, _dequantize_blocks, q, scales)
+    return _dequantize_blocks(q, scales)
+
+
+def _dequantize_blocks(q, scales):
     if not uses_kernel(q):
         return dequant_blocks_ref(q, scales)
     g, rows, cols = q.shape
@@ -53,6 +70,24 @@ def dequantize_leaves(leaves, *, block, dtype) -> list:
     ``block`` and ``dtype`` are one value, or one per leaf that all agree;
     mixed ones are refused.
     """
+    counter = getattr(WORK, "counter", None)
+    if counter is not None:
+        return counter.kernel("quant_kv", dequant_leaves_work, _dequantize_leaves, leaves,
+                              block=block, dtype=dtype)
+    return _dequantize_leaves(leaves, block=block, dtype=dtype)
+
+
+def dequant_leaves_work(leaves, *, block, dtype) -> tuple:
+    """(FLOPs, bytes) of one call: 0 FLOPs; every leaf and scale read once,
+    every output written once in ``dtype`` (one value per leaf: the
+    first)."""
+    if isinstance(dtype, (list, tuple)):
+        dtype = dtype[0]
+    size = _torch_dtype(dtype).itemsize
+    return 0, sum(_nbytes(q, s) + q.numel() * size for q, s in leaves)
+
+
+def _dequantize_leaves(leaves, *, block, dtype) -> list:
     if not 0 < len(leaves) <= MAX_LEAVES:
         raise ValueError(f"a segment call takes 1 to {MAX_LEAVES} leaves; got "
                          f"{len(leaves)}")

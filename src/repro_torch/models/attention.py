@@ -13,6 +13,14 @@ it is the blocked softmax without a mask, on every path.
 Caches are updated **in place** here (the JAX reference returns new
 arrays): ``seq_update`` and ``write_kv`` write into the cache tensors they
 are given, which are views into the caller's layer-stacked cache.
+
+Traced as a sharded program (``DTensor`` s inside ``use_rules``), the
+blocked softmax runs on each rank's rows and heads
+(``distributed.sharding.local_region``), and decode attends over a cache
+whose positions are sharded (``cache_seq``): each rank writes the new row
+where it holds its position, scores its own positions, and the ranks
+combine their softmax partials (max, then sums) by all-reduce.  On plain
+tensors none of this runs.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import (KEEP, active, all_reduce_over, local_region,
+                                              mesh_coords)
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.extend_attention import ops as extend_ops
 
@@ -62,8 +72,24 @@ def blocked_attention(q, k, v, q_pos, k_pos, *, causal: bool, block: int = 512):
     """Online softmax over KV blocks.  q (B,S,H,hd); k/v (B,T,KV,hd).
 
     Operands keep their dtype into each product with fp32 accumulation
-    (bf16 scores at full width); softmax statistics are fp32.
+    (bf16 scores at full width); softmax statistics are fp32.  In a
+    sharded program each rank runs it on its rows and heads: K/V heads
+    shard with the q heads when their count divides the mesh, else each
+    rank takes the K/V heads its q heads read.
     """
+    st = active()
+    if st is None or getattr(q, "placements", None) is None:
+        return _blocked_attention(q, k, v, q_pos, k_pos, causal=causal, block=block)
+    rules, mesh = st
+    n = mesh_coords(mesh, rules.rules.get("heads"))[1]
+    h, kv = q.shape[2], k.shape[2]
+    g = h // kv
+    if kv % n and h % n == 0 and ((h // n) % g == 0 or g % (h // n) == 0):
+        return _q_heads_region(q, k, v, q_pos, k_pos, causal=causal, block=block, n_heads=h)
+    return _blocked_region(q, k, v, q_pos, k_pos, causal=causal, block=block)
+
+
+def _blocked_attention(q, k, v, q_pos, k_pos, *, causal: bool, block: int = 512):
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
@@ -97,6 +123,29 @@ def blocked_attention(q, k, v, q_pos, k_pos, *, causal: bool, block: int = 512):
     out = acc / torch.clamp(l, min=1e-30)[..., None]       # (B,KV,G,S,hd_v)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd_v)
     return out.to(q.dtype)
+
+
+# q, k and v bear one name for their heads, so a rank holds whole groups
+_HEADS = ("batch", None, "heads", None)
+_blocked_region = local_region(_blocked_attention, (_HEADS, _HEADS, _HEADS, ("batch", None),
+                                                    ("batch", None)), (_HEADS,))
+
+
+def _q_heads_attention(q, k, v, q_pos, k_pos, *, causal: bool, block: int, n_heads: int):
+    """A rank's q heads over the K/V heads they read (K/V whole here)."""
+    h = q.shape[2]
+    if h < n_heads:
+        rules, mesh = active()
+        i = mesh_coords(mesh, rules.rules.get("heads"))[0]
+        g = n_heads // k.shape[2]
+        lo, hi = i * h // g, -(-(i + 1) * h // g)
+        k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    return _blocked_attention(q, k, v, q_pos, k_pos, causal=causal, block=block)
+
+
+_ROWS = ("batch", None, None, None)
+_q_heads_region = local_region(_q_heads_attention, (_HEADS, _ROWS, _ROWS, ("batch", None),
+                                                    ("batch", None)), (_HEADS,))
 
 
 def seq_update(cache, new, start):
@@ -188,6 +237,69 @@ def decode_attention(p: AttnParams, x, cache_k, cache_v, pos, *, theta: float):
     bit-invariant to the cache's padded capacity.
     """
     q, k_new, v_new = _project_qkv(p, x, x, pos[:, None], pos[:, None], theta)
-    decode_ops.write_kv(cache_k, cache_v, k_new, v_new, pos)
-    out = decode_ops.decode_attention(q, cache_k, cache_v, pos=pos)
+    out = _decode_region(q, k_new, v_new, cache_k, cache_v, pos)
     return proj_out(out.to(x.dtype), p.wo), (cache_k, cache_v)
+
+
+def _decode_plain(q, k_new, v_new, cache_k, cache_v, pos):
+    decode_ops.write_kv(cache_k, cache_v, k_new, v_new, pos)
+    return decode_ops.decode_attention(q, cache_k, cache_v, pos=pos)
+
+
+def seq_parallel_write(cache, new, pos, off: int):
+    """Write ``new`` (B, ...) at global position ``pos`` of each row into
+    this rank's positions [off, off + T_local) of ``cache`` (B, T_local,
+    ...), in place; a row whose position another rank holds keeps its
+    values."""
+    t = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    lp = pos.long() - off
+    mine = (lp >= 0) & (lp < t)
+    idx = lp.clamp(0, t - 1)
+    keep = mine.reshape((-1,) + (1,) * (new.ndim - 1))
+    cache[rows, idx] = torch.where(keep, new.to(cache.dtype), cache[rows, idx])
+
+
+def softmax_combine(sc, pos, off: int, entry, values):
+    """Masked softmax over positions sharded across the ranks of ``entry``:
+    ``sc`` (..., T_local) are this rank's scores for positions off + t,
+    masked past each row's ``pos`` (``pos`` broadcasts against ``sc``'s
+    leading dimension); returns Σ_t p_t · v_t with ``values(p)`` giving a
+    rank's unnormalised sum, the partial maxima and sums all-reduced."""
+    t = sc.shape[-1]
+    k_pos = off + torch.arange(t, device=sc.device)
+    valid = k_pos.view((1,) * (sc.ndim - 1) + (t,)) <= pos.reshape(
+        (-1,) + (1,) * (sc.ndim - 1))
+    sc = torch.where(valid, sc, NEG_INF)
+    m = all_reduce_over(sc.amax(-1), "max", entry)
+    p = torch.exp(sc - m[..., None])
+    l = all_reduce_over(p.sum(-1), "sum", entry)
+    acc = all_reduce_over(values(p), "sum", entry)
+    return acc / torch.clamp(l, min=1e-30).reshape(l.shape + (1,) * (acc.ndim - l.ndim))
+
+
+def _decode_sharded(q, k_new, v_new, cache_k, cache_v, pos):
+    """One rank's decode over its cache positions (see the module
+    docstring); q holds every head."""
+    entry, off = seq_offset(cache_k.shape[1])
+    seq_parallel_write(cache_k, k_new[:, 0], pos, off)
+    seq_parallel_write(cache_v, v_new[:, 0], pos, off)
+    b, _, h, hd = q.shape
+    kv = cache_k.shape[2]
+    qg = q[:, 0].reshape(b, kv, h // kv, hd).float() * (hd ** -0.5)
+    sc = torch.einsum("bkgd,btkd->bkgt", qg, cache_k.float())
+    out = softmax_combine(sc, pos, off, entry,
+                          lambda p: torch.einsum("bkgt,btkd->bkgd", p, cache_v.float()))
+    return out.reshape(b, 1, h, cache_v.shape[-1])
+
+
+def seq_offset(t_local: int) -> tuple:
+    """(mesh entry of ``cache_seq``, this rank's first position) for a
+    cache of ``t_local`` positions a rank, in a sharded program."""
+    rules, mesh = active()
+    entry = rules.rules.get("cache_seq")
+    return entry, t_local * mesh_coords(mesh, entry)[0]
+
+
+_decode_region = local_region(_decode_sharded, (_ROWS, _ROWS, _ROWS, KEEP, KEEP, ("batch",)),
+                              (_ROWS,), plain=_decode_plain)

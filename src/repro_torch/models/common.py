@@ -19,6 +19,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import active as _active
+
 # ---------------------------------------------------------------------------
 # cache-leaf taxonomy: what each entry of a serving cache tree *is*.  The
 # model creates these entries and the serve layer slices/concats/stores them.
@@ -121,6 +123,77 @@ def param_count(specs) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
 
 
+def contiguous_strides(shape) -> tuple:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+def local_shape(shape, mesh_sizes, placements) -> tuple:
+    """One device's shape of a tensor of global ``shape`` laid out by
+    ``placements`` (one per mesh dimension, of sizes ``mesh_sizes``):
+    ``Shard(d)`` divides dimension ``d``, evenly (``safe_spec`` makes
+    every layout even)."""
+    out = list(shape)
+    for n, pl in zip(mesh_sizes, placements):
+        d = getattr(pl, "dim", None)
+        if d is not None and pl.is_shard():
+            if out[d] % n:
+                raise ValueError(f"dimension {d} of {tuple(shape)} does not split "
+                                 f"into {n}")
+            out[d] //= n
+    return tuple(out)
+
+
+def make_struct(shape, dtype: torch.dtype, sharding=None, device="meta"):
+    """A zero-allocation tensor of global ``shape``: with ``sharding`` None
+    a tensor on ``device`` (``meta`` by default), else a ``DTensor`` whose
+    local tensor is one device's shard on ``device``, laid out by
+    ``sharding = (mesh, placements)``.  Under a ``FakeTensorMode``,
+    ``device="cpu"`` makes fake CPU tensors."""
+    shape = tuple(int(n) for n in shape)
+    if sharding is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+
+    mesh, pl = sharding
+    local = torch.empty(local_shape(shape, tuple(mesh.shape), pl), dtype=dtype,
+                        device=device)
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def shape_structs(specs, dtype: torch.dtype, sharding_fn=None, device="meta"):
+    """The spec tree as zero-allocation tensors (``repro``'s
+    ``ShapeDtypeStruct`` tree): meta tensors, or with ``sharding_fn(axes) ->
+    (mesh, placements)`` ``DTensor`` s of meta (or, under a
+    ``FakeTensorMode``, fake) local shards (see :func:`make_struct`)."""
+    def mk(s: ParamSpec):
+        return make_struct(s.shape, dtype,
+                           sharding_fn(s.axes) if sharding_fn is not None else None, device)
+
+    return spec_map(mk, specs)
+
+
+def struct_local(x):
+    """One device's part of a struct: a ``DTensor``'s local tensor, or the
+    tensor itself."""
+    return x._local_tensor if hasattr(x, "_local_tensor") else x
+
+
+def struct_shape(x) -> tuple:
+    """One device's shape of a struct (``shard_shape`` in ``repro``)."""
+    return tuple(struct_local(x).shape)
+
+
+def struct_bytes(x) -> int:
+    """One device's bytes of a struct."""
+    loc = struct_local(x)
+    return loc.numel() * loc.element_size()
+
+
 def param_bytes(specs, dtype: torch.dtype) -> int:
     return param_count(specs) * dtype.itemsize
 
@@ -135,6 +208,8 @@ def rms_norm(x, scale, eps: float = 1e-5):
     dt = x.dtype
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
+    if _active() is not None:     # a sharded scale (FSDP) is gathered first
+        scale = _whole_dim(scale, scale.ndim - 1)
     return (xf * torch.rsqrt(var + eps)).to(dt) * scale
 
 
@@ -169,17 +244,70 @@ def apply_rope(x, cos, sin):
 
 
 def dense(x, w):
-    """(…, d) @ (d, e) → (…, e)."""
+    """(…, d) @ (d, e) → (…, e), in the promoted dtype of the two (as
+    ``jnp.einsum`` promotes: bf16 features by fp32 weights give fp32)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    if _active() is not None:
+        return _dense_sharded(x, w)
     return torch.matmul(x, w)
 
 
 def proj_heads(x, w):
     """(…, d) @ (d, H, k) → (…, H, k) — per-head input projection."""
     d, h, k = w.shape
-    return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+    if _active() is None:
+        return torch.matmul(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return dense(x, _whole_dim(w, 2).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def proj_out(x, w):
     """(…, H, k) @ (H, k, d) → (…, d) — attention output projection."""
     h, k, d = w.shape
-    return torch.matmul(x.flatten(-2), w.reshape(h * k, d))
+    if _active() is None:
+        return torch.matmul(x.flatten(-2), w.reshape(h * k, d))
+    return dense(_whole_dim(x, x.ndim - 1).flatten(-2), _whole_dim(w, 1).reshape(h * k, d))
+
+
+def _dense_sharded(x, w):
+    """``x @ w`` in a sharded program, on each rank's shards, mesh
+    dimension by mesh dimension: rows of ``x`` sharded on its first
+    dimension stay so (``w`` gathered there: FSDP); a contraction sharded
+    on both sides stays so and sums (row parallel); ``w``'s output columns
+    sharded stay so (column parallel); anything else is gathered.  Other
+    leading dimensions of ``x`` are gathered, so the product's rows never
+    take a strided layout, in the backward pass neither."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import as_dtensor, run_local
+
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return torch.matmul(x, w)
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    x, w = as_dtensor(x, mesh), as_dtensor(w, mesh)
+    last = x.ndim - 1
+    xs, ws, outs = [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if xp.is_shard(0) and last > 0:
+            xs.append(xp), ws.append(Replicate()), outs.append(Shard(0))
+        elif xp.is_shard(last) and wp.is_shard(0):
+            xs.append(xp), ws.append(wp), outs.append(Partial())
+        elif wp.is_shard(1):
+            xs.append(Replicate()), ws.append(wp), outs.append(Shard(last))
+        else:
+            xs.append(Replicate()), ws.append(Replicate()), outs.append(Replicate())
+    return run_local(torch.matmul, mesh, [tuple(xs), tuple(ws)], [tuple(outs)], x, w)
+
+
+def _whole_dim(w, dim: int):
+    """In a sharded program, ``w`` with dimension ``dim`` gathered where it
+    is sharded: a per-head width sharded (heads that do not divide the
+    mesh re-home to it) would merge with the heads into a strided layout
+    that no product takes."""
+    pl = getattr(w, "placements", None)
+    if pl is None or not any(p.is_shard(dim) for p in pl):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    return w.redistribute(w.device_mesh, [Replicate() if p.is_shard(dim) else p for p in pl])

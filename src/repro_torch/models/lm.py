@@ -53,7 +53,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (active, all_reduce_over, constrain, local_region,
+                                              mesh_coords)
 
 from . import attention as attn
 from . import mla as mla_mod
@@ -369,7 +370,8 @@ class LM:
 
     # -- pieces ------------------------------------------------------------
     def _embed(self, params, tokens):
-        return F.embedding(tokens.long(), params["embed"]).to(self.compute_dtype)
+        return _embed_region(tokens, params["embed"], dtype=self.compute_dtype,
+                             vocab=self.cfg.vocab_size)
 
     def _mlp(self, spec: LayerSpec, p, x):
         """The feed-forward sublayer: (x + its output, the router's aux
@@ -452,7 +454,7 @@ class LM:
 
     def logits(self, params, hidden):
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        out = torch.matmul(hidden.to(self.compute_dtype), head.to(self.compute_dtype))
+        out = dense(hidden.to(self.compute_dtype), head.to(self.compute_dtype))
         return constrain(out, "batch", None, "vocab")
 
     def _final_logits(self, params, x):
@@ -672,8 +674,63 @@ class LM:
         return self.logits(params, hidden)[:, 0], caches
 
 
+def _embed_rows(tokens, table, *, dtype, vocab: int):
+    return F.embedding(tokens.long(), table).to(dtype)
+
+
+def _embed_sharded(tokens, table, *, dtype, vocab: int):
+    """One rank's rows of the embedding over its vocabulary slice: tokens
+    another rank's slice holds give zeros, and the ranks sum."""
+    rules, mesh = active()
+    entry = rules.rules.get("vocab")
+    n = table.shape[0]
+    lo = n * mesh_coords(mesh, entry)[0] if n < vocab else 0
+    t = tokens.long() - lo
+    mine = (t >= 0) & (t < n)
+    rows = F.embedding(torch.where(mine, t, 0), table)
+    return torch.where(mine[..., None], rows, 0).to(dtype)
+
+
+def _embed_layout(ins):
+    """Rows as the tokens; summed over the mesh dimensions that split the
+    vocabulary."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    return tuple(Shard(0) if tp.is_shard() else Partial() if ep.is_shard() else Replicate()
+                 for tp, ep in zip(ins[0], ins[1]))
+
+
+_embed_region = local_region(_embed_sharded, (("batch", None), ("vocab", None)),
+                             (_embed_layout,), plain=_embed_rows)
+
+
 def _token_ce(logits, targets):
-    """Per-token cross-entropy in fp32: logsumexp minus the target's logit."""
+    """Per-token cross-entropy in fp32: logsumexp minus the target's logit.
+    In a sharded program each rank scores its vocabulary slice and the
+    ranks combine the maxima and sums."""
+    return _ce_region(logits, targets, vocab=logits.shape[-1])
+
+
+def _token_ce_plain(logits, targets, *, vocab: int):
     lg = logits.float()
     true = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
     return torch.logsumexp(lg, dim=-1) - true
+
+
+def _token_ce_sharded(logits, targets, *, vocab: int):
+    rules, mesh = active()
+    n = logits.shape[-1]
+    entry = rules.rules.get("vocab") if n < vocab else None
+    lo = n * mesh_coords(mesh, entry)[0]
+    lg = logits.float()
+    m = all_reduce_over(lg.amax(-1), "max", entry)
+    se = all_reduce_over(torch.exp(lg - m[..., None]).sum(-1), "sum", entry)
+    t = targets.long() - lo
+    mine = (t >= 0) & (t < n)
+    true = torch.gather(lg, -1, torch.where(mine, t, 0)[..., None])[..., 0]
+    true = all_reduce_over(torch.where(mine, true, 0.0), "sum", entry)
+    return m + torch.log(se) - true
+
+
+_ce_region = local_region(_token_ce_sharded, (("batch", None, "vocab"), ("batch", None)),
+                          (("batch", None),), plain=_token_ce_plain)

@@ -15,6 +15,10 @@ plus a decoupled RoPE key, so the serving cache is the latent stream
   PyTorch as in ``repro`` (no kernel): query projections fold through
   ``w_uk`` / ``w_uv`` so attention runs in latent space; the latent is
   written in place at each row's ``pos``.
+
+In a sharded program (``DTensor`` s inside ``use_rules``) the prefill's
+attention runs on each rank's rows and heads, and decode over a latent
+cache whose positions are sharded, as ``attention.py``'s decode does.
 """
 from __future__ import annotations
 
@@ -25,7 +29,10 @@ import torch
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels.extend_attention import ops as extend_ops
 
-from .attention import NEG_INF, blocked_attention, seq_update
+from repro_torch.distributed.sharding import KEEP, local_region
+
+from .attention import (NEG_INF, blocked_attention, seq_offset, seq_parallel_write, seq_update,
+                        softmax_combine)
 from .common import apply_rope, dense, proj_heads, proj_out, rms_norm, rope_angles
 
 
@@ -68,10 +75,19 @@ def mla_self_attention(p: MLAParams, m: MLAConfig, x, positions, *, theta: float
     c_kv, k_rope = _latent(p, m, x, positions, theta)
     k_nope = proj_heads(c_kv, p.w_uk)                     # (B,T,H,nope)
     v = proj_heads(c_kv, p.w_uv)                          # (B,T,H,v)
+    out = _attend_region(q_nope, q_rope, k_nope, k_rope, v, positions, block=block)
+    return proj_out(out, p.w_o), (c_kv, k_rope)
+
+
+def _attend(q_nope, q_rope, k_nope, k_rope, v, positions, *, block: int):
     # the packed width's scale (nope+rope)^-0.5 is MLA's
     q, k = extend_ops.pack_mla(q_nope, q_rope, k_nope, k_rope)
-    out = blocked_attention(q, k, v, positions, positions, causal=True, block=block)
-    return proj_out(out, p.w_o), (c_kv, k_rope)
+    return blocked_attention(q, k, v, positions, positions, causal=True, block=block)
+
+
+_HEADS = ("batch", None, "heads", None)
+_attend_region = local_region(_attend, (_HEADS, _HEADS, _HEADS, ("batch", None, None), _HEADS,
+                                        ("batch", None)), (_HEADS,))
 
 
 def mla_extend(p: MLAParams, m: MLAConfig, h, cache_ckv, cache_krope,
@@ -108,22 +124,50 @@ def mla_decode(p: MLAParams, m: MLAConfig, x, cache_ckv, cache_krope, pos, *,
     scores = q_nopeᵀ·W_uk·c + q_ropeᵀ·k_rope over positions ≤ pos[b] and
     out = (probs·c)·W_uv, in fp32.
     """
-    b = x.shape[0]
-    t = cache_ckv.shape[1]
     q_nope, q_rope = _queries(p, m, x, pos[:, None], theta)   # (B,1,H,·)
     c_new, kr_new = _latent(p, m, x, pos[:, None], theta)
+    out = _decode_region(q_nope, q_rope, c_new, kr_new, cache_ckv, cache_krope, pos, p.w_uk,
+                         p.w_uv, scale=(m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    out = out[:, None].to(x.dtype)                        # (B,1,H,v)
+    return proj_out(out, p.w_o), (cache_ckv, cache_krope)
+
+
+def _decode_plain(q_nope, q_rope, c_new, kr_new, cache_ckv, cache_krope, pos, w_uk, w_uv, *,
+                  scale: float):
+    b = q_nope.shape[0]
+    t = cache_ckv.shape[1]
     rows = torch.arange(b, device=cache_ckv.device)
     cache_ckv[rows, pos.long()] = c_new[:, 0].to(cache_ckv.dtype)
     cache_krope[rows, pos.long()] = kr_new[:, 0].to(cache_krope.dtype)
     # absorb: q' = q_nope @ W_uk  → latent-space query (B,H,kv_lora)
-    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], p.w_uk)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk)
     sc = torch.einsum("bhl,btl->bht", q_lat.float(), cache_ckv.float())
     sc = sc + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(), cache_krope.float())
-    sc = sc * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    sc = sc * scale
     valid = torch.arange(t, device=sc.device)[None] <= pos[:, None]
     sc = torch.where(valid[:, None, :], sc, NEG_INF)
     prob = torch.softmax(sc, dim=-1)
     o_lat = torch.einsum("bht,btl->bhl", prob, cache_ckv.float())
-    out = torch.einsum("bhl,lhv->bhv", o_lat, p.w_uv.float())
-    out = out[:, None].to(x.dtype)                        # (B,1,H,v)
-    return proj_out(out, p.w_o), (cache_ckv, cache_krope)
+    return torch.einsum("bhl,lhv->bhv", o_lat, w_uv.float())
+
+
+def _decode_sharded(q_nope, q_rope, c_new, kr_new, cache_ckv, cache_krope, pos, w_uk, w_uv, *,
+                    scale: float):
+    """One rank's absorbed decode over its latent positions; the softmax
+    partials combine across the ranks that shard the positions."""
+    entry, off = seq_offset(cache_ckv.shape[1])
+    seq_parallel_write(cache_ckv, c_new[:, 0], pos, off)
+    seq_parallel_write(cache_krope, kr_new[:, 0], pos, off)
+    q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk)
+    sc = torch.einsum("bhl,btl->bht", q_lat.float(), cache_ckv.float())
+    sc = sc + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(), cache_krope.float())
+    o_lat = softmax_combine(sc * scale, pos, off, entry,
+                            lambda p: torch.einsum("bht,btl->bhl", p, cache_ckv.float()))
+    return torch.einsum("bhl,lhv->bhv", o_lat, w_uv.float())
+
+
+_ROWS = ("batch", None, None, None)
+_decode_region = local_region(
+    _decode_sharded, (_ROWS, _ROWS, ("batch", None, None), ("batch", None, None), KEEP, KEEP,
+                      ("batch",), (None, None, None), (None, None, None)),
+    (("batch", None, None),), plain=_decode_plain)

@@ -22,6 +22,13 @@ bitwise the same tokens:
 
 With ``groups > 1`` each group of tokens is routed on its own, under the
 same rules (``repro``'s expert-parallel dispatch, as a loop over groups).
+
+In a sharded program (``DTensor`` s inside ``use_rules``) a rank holds the
+experts of its ``experts`` shard and their ``ff`` slices: it gathers every
+token, routes them all (the same global routing, capacity and drops), runs
+its own experts on their kept assignments, and the ranks sum their outputs
+by all-reduce over ``experts`` and ``ff``.  The shared experts run as
+plain sharded products.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (active, all_reduce_over, constrain, local_region,
+                                              mesh_coords)
 
 from .common import activation_fn, dense
 
@@ -147,6 +155,16 @@ def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
     over groups.  ``repro`` shards the groups over a mesh; here they run
     one after another on one device.
     """
+    if active() is not None:
+        out, aux = _sharded_region(x, p.router, *p.experts, cfg=cfg, activation=activation,
+                                   groups=groups, plain_params=p)
+        if p.shared is None or not hasattr(out, "placements"):
+            return out, aux
+        return out + _shared_ffn(p.shared, x, activation), aux
+    return _moe_ffn(p, cfg, x, activation, groups)
+
+
+def _moe_ffn(p: MoEParams, cfg: MoEConfig, x, activation: str, groups: int):
     if groups > 1:
         return _moe_ffn_grouped(p, cfg, x, activation, groups)
     b, s, d = x.shape
@@ -196,13 +214,58 @@ def _moe_ffn_grouped(p: MoEParams, cfg: MoEConfig, x, activation: str, groups: i
     return out.reshape(b, s, d), torch.stack([r.aux for r in routes]).mean()
 
 
+def _moe_plain(x, router, w_gate, w_up, w_down, *, cfg, activation, groups, plain_params):
+    return _moe_ffn(plain_params, cfg, x, activation, groups)
+
+
+def _moe_sharded(x, router, w_gate, w_up, w_down, *, cfg, activation, groups, plain_params):
+    """One rank's part of the routed experts over every token (see the
+    module docstring): (its output summed over the ranks, the aux loss)."""
+    rules, mesh = active()
+    b, s, d = x.shape
+    n = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    e_entry = rules.rules.get("experts") if w_gate.shape[0] < e else None
+    f_entry = rules.rules.get("ff") if w_gate.shape[2] < cfg.d_ff_expert else None
+    e_loc = w_gate.shape[0]
+    e0 = e_loc * mesh_coords(mesh, e_entry)[0]
+    if n % groups:
+        raise ValueError(f"{n} tokens do not split into {groups} MoE groups")
+    xg = x.reshape(groups, n // groups, d)
+    outs, auxes = [], []
+    for g in range(groups):
+        xt = xg[g]
+        r = route(cfg, router, xt)
+        mine = r.keep & (r.sorted_expert >= e0) & (r.sorted_expert < e0 + e_loc)
+        spare = e_loc * r.capacity
+        dest = torch.where(mine, (r.sorted_expert - e0) * r.capacity + r.slot, spare)
+        buf = xt.new_zeros((spare + 1, d))
+        buf[dest] = xt[r.token_idx]
+        out_buf = _expert_ffn(buf[:-1].view(e_loc, r.capacity, d), w_gate, w_up, w_down,
+                              activation)
+        local = Route(r.sorted_expert, r.slot, mine, r.token_idx, r.rank, r.gates, r.capacity,
+                      r.aux)
+        outs.append(_combine(local, out_buf, dest, xt, k))
+        auxes.append(r.aux)
+    out = all_reduce_over(torch.cat(outs).reshape(b, s, d), "sum", e_entry)
+    out = all_reduce_over(out, "sum", f_entry)
+    return out, auxes[0] if groups == 1 else torch.stack(auxes).mean()
+
+
+_EXPERT_IN = ("experts", None, "ff")
+_sharded_region = local_region(
+    _moe_sharded, ((None, None, None), (None, None), _EXPERT_IN, _EXPERT_IN,
+                   ("experts", "ff", None)),
+    ((None, None, None), ()), plain=_moe_plain)
+
+
 def _shared_ffn(shared, xt, activation: str):
     w_gate, w_up, w_down = shared
     if activation == "swiglu":
-        h = F.silu(xt @ w_gate) * (xt @ w_up)
+        h = F.silu(dense(xt, w_gate)) * dense(xt, w_up)
     else:
-        h = activation_fn(activation)(xt @ w_up)
-    return h @ w_down
+        h = activation_fn(activation)(dense(xt, w_up))
+    return dense(h, w_down)
 
 
 def dense_ffn(params: dict, x, activation: str):

@@ -12,6 +12,10 @@ blocks, ``(x ⊙ decay)ᵀ · B`` for the chunk states and ``(C · state) ⊙
 decay`` for the off-diagonal term, so the fp32 rounding is the same on the
 CPU and the card whatever contraction path ``torch.einsum`` would pick.
 ``jax.lax.scan`` over chunks is a Python loop.
+
+In a sharded program (``DTensor`` s inside ``use_rules``) the scan runs on
+each rank's rows and heads (its B and C groups with them, or whole when
+there is one group), and a decode step on each rank's rows.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed.sharding import local_region
 
-from .common import rms_norm
+from .common import dense, rms_norm
 
 
 class SSDParams(NamedTuple):
@@ -70,6 +75,11 @@ def _segsum(a):
 def ssd_scan(x, a, B, C, chunk: int, initial_state=None):
     """Chunked SSD.  x (b,l,h,p) pre-multiplied by dt; a (b,l,h) = dt·A;
     B, C (b,l,g,n).  Returns y (b,l,h,p) and final state (b,h,p,n)."""
+    region = _scan_one_group if B.shape[2] == 1 else _scan_groups
+    return region(x, a, B, C, initial_state, chunk=chunk)
+
+
+def _ssd_scan(x, a, B, C, initial_state=None, *, chunk: int):
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     chunk = min(chunk, l)
@@ -111,13 +121,23 @@ def ssd_scan(x, a, B, C, chunk: int, initial_state=None):
     return y, carry
 
 
+_X = ("batch", None, "ssm_heads", None)
+_A = ("batch", None, "ssm_heads")
+_STATE = ("batch", "ssm_heads", None, None)
+# one group serves every head: each rank takes it whole; more groups shard
+# with the heads (one name), so a rank holds the groups of its heads
+_scan_one_group = local_region(_ssd_scan, (_X, _A, ("batch", None, None, None),
+                                           ("batch", None, None, None), _STATE), (_X, _STATE))
+_scan_groups = local_region(_ssd_scan, (_X, _A, _X, _X, _STATE), (_X, _STATE))
+
+
 def ssd_block(p: SSDParams, cfg: SSMConfig, d_model: int, x, *, norm_eps=1e-5,
               return_state: bool = False, initial=None):
     """Full Mamba-2 block on (B, L, d_model).  ``initial``/returned state is
     (conv_state (B,W−1,C), ssm_state (B,h,p,n)) for decode handoff; the
     returned state never shares storage with ``initial``."""
     b, l, _ = x.shape
-    z, xbc, dt, d_in, h, gn = _split_proj(cfg, d_model, torch.matmul(x, p.w_in))
+    z, xbc, dt, d_in, h, gn = _split_proj(cfg, d_model, dense(x, p.w_in))
     if initial is not None:
         conv_in = torch.cat([initial[0], xbc], dim=1)
         xbc_conv = _causal_conv(conv_in, p.conv_w, p.conv_b)[:, initial[0].shape[1]:]
@@ -135,7 +155,7 @@ def ssd_block(p: SSDParams, cfg: SSMConfig, d_model: int, x, *, norm_eps=1e-5,
     )
     y = y + xh * p.d_skip[None, None, :, None]
     y = y.reshape(b, l, d_in) * F.silu(z)
-    out = torch.matmul(rms_norm(y, p.out_norm, norm_eps), p.w_out)
+    out = dense(rms_norm(y, p.out_norm, norm_eps), p.w_out)
     if return_state:
         w = p.conv_w.shape[0]
         tail = xbc if initial is None else conv_in
@@ -148,9 +168,15 @@ def ssd_decode(p: SSDParams, cfg: SSMConfig, d_model: int, x, state, *, norm_eps
     """Single-token recurrence.  x (B,1,d); state = (conv_state, ssm_state).
     The new state is computed apart from ``state`` (the caller may copy it
     into the same tensors)."""
-    conv_state, ssm_state = state                                 # (B,W−1,C), (B,h,p,n)
+    out, conv, ssm = _decode_region(x, state[0], state[1], *p, cfg=cfg, d_model=d_model,
+                                    norm_eps=norm_eps)
+    return out, (conv, ssm)
+
+
+def _ssd_decode(x, conv_state, ssm_state, *params, cfg: SSMConfig, d_model: int, norm_eps):
+    p = SSDParams(*params)                                        # (B,W−1,C), (B,h,p,n)
     b = x.shape[0]
-    z, xbc, dt, d_in, h, gn = _split_proj(cfg, d_model, torch.matmul(x, p.w_in))
+    z, xbc, dt, d_in, h, gn = _split_proj(cfg, d_model, dense(x, p.w_in))
     full = torch.cat([conv_state, xbc], dim=1)                    # (B,W,C)
     conv_out = F.silu((full * p.conv_w[None]).sum(1, keepdim=True) + p.conv_b)
     new_conv_state = full[:, 1:, :]
@@ -167,5 +193,12 @@ def ssd_decode(p: SSDParams, cfg: SSMConfig, d_model: int, x, state, *, norm_eps
     y = torch.matmul(ssm_state, Ch[..., None])[..., 0]            # (B,h,p)
     y = y + xs[:, 0].reshape(b, h, cfg.head_dim) * p.d_skip[:, None]
     y = y.reshape(b, 1, d_in) * F.silu(z)
-    out = torch.matmul(rms_norm(y, p.out_norm, norm_eps), p.w_out)
-    return out, (new_conv_state, ssm_state)
+    out = dense(rms_norm(y, p.out_norm, norm_eps), p.w_out)
+    return out, new_conv_state, ssm_state
+
+
+# a decode step runs on each rank's rows with whole weights
+_ROWS = ("batch", None, None)
+_decode_region = local_region(
+    _ssd_decode, (_ROWS, _ROWS, ("batch", None, None, None)) + ((None, None), (None, None))
+    + ((None,),) * 5 + ((None, None),), (_ROWS, _ROWS, ("batch", None, None, None)))

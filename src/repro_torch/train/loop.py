@@ -22,6 +22,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import KEEP, local_region
 from repro_torch.models.common import tree_leaves, tree_unflatten
 
 from .optim import Optimizer, clip_scale, global_norm, make_optimizer, warmup_cosine
@@ -41,14 +42,32 @@ class UpdateInterrupted(RuntimeError):
 
 def _split_microbatches(batch: dict, k: int) -> dict:
     """Each entry (b, ...) as (k, b/k, ...): rows [i·b/k, (i+1)·b/k) form
-    microbatch i."""
+    microbatch i.  In a sharded program whose ranks hold a multiple of k
+    rows each, microbatch i is every rank's i-th k-th of its own rows
+    instead (the same gradient mean, without moving a row)."""
     def re(x):
         b = x.shape[0]
         if b % k:
             raise ValueError(f"batch of {b} rows does not split into {k} microbatches")
-        return x.reshape(k, b // k, *x.shape[1:])
+        return _split_region(x, k=k)
 
     return {kk: re(v) for kk, v in batch.items()}
+
+
+def _split_rows(x, *, k: int):
+    b = x.shape[0]
+    if b % k:
+        raise ValueError(f"a rank's {b} rows do not split into {k} microbatches: a "
+                         "microbatch would hold fewer rows than the batch has shards")
+    return x.reshape(k, b // k, *x.shape[1:])
+
+
+def _behind_microbatch(ins):
+    """The rows' layout, one dimension down (behind the microbatch axis)."""
+    return tuple(type(p)(p.dim + 1) if p.is_shard() else p for p in ins[0])
+
+
+_split_region = local_region(_split_rows, (KEEP,), (_behind_microbatch,))
 
 
 def make_train_step(
@@ -77,7 +96,8 @@ def make_train_step(
 
     def train_step(params, opt_state, batch, step):
         leaves = tree_leaves(params)
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+        gsum = [torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
+                for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         mbs = _split_microbatches(batch, k)
         for i in range(k):

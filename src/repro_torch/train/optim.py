@@ -10,7 +10,9 @@ dtype.  ``torch.optim.AdamW`` is not this AdamW: its denominator is
 ``update(grads, state, params, lr)`` writes the new parameters and moments
 **in place**, leaf by leaf (an AdamW leaf in slices of ``_SLICE``
 elements, so a full-width embedding's fp32 temporaries stay small), and
-returns ``(params, state)``; ``state["count"]`` is a new tensor.
+returns ``(params, state)``; ``state["count"]`` is a new tensor.  In a
+sharded program an AdamW leaf updates on each rank's shard, its gradient
+laid out as the parameter.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import KEEP, local_region
 from repro_torch.models.common import tree_items_sorted, tree_leaves, tree_map_with_path
 
 #: elements per slice of an in-place AdamW update (64 MiB of fp32)
@@ -93,18 +96,27 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         bc2 = 1 - b2 ** c
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                               tree_leaves(state["v"]), tree_leaves(params)):
-            g, m, v, p = _flat(g), _flat(m), _flat(v), _flat(p)
-            for lo in range(0, p.numel(), _SLICE):
-                sl = slice(lo, lo + _SLICE)
-                gs, ms, vs, ps = g[sl].float(), m[sl], v[sl], p[sl]
-                ms.mul_(b1).add_((1 - b1) * gs)
-                vs.mul_(b2).add_((1 - b2) * gs * gs)
-                step = (ms / bc1) / (torch.sqrt(vs / bc2) + eps)
-                pf = ps.float()
-                ps.copy_(pf - lr * (step + weight_decay * pf))
+            _adamw_region(g, m, v, p, bc1, bc2, lr, b1=b1, b2=b2, eps=eps,
+                          weight_decay=weight_decay)
         return params, {"m": state["m"], "v": state["v"], "count": count}
 
     return Optimizer(init, update)
+
+
+def _adamw_leaf(g, m, v, p, bc1, bc2, lr, *, b1, b2, eps, weight_decay):
+    g, m, v, p = _flat(g), _flat(m), _flat(v), _flat(p)
+    for lo in range(0, p.numel(), _SLICE):
+        sl = slice(lo, lo + _SLICE)
+        gs, ms, vs, ps = g[sl].float(), m[sl], v[sl], p[sl]
+        ms.mul_(b1).add_((1 - b1) * gs)
+        vs.mul_(b2).add_((1 - b2) * gs * gs)
+        step = (ms / bc1) / (torch.sqrt(vs / bc2) + eps)
+        pf = ps.float()
+        ps.copy_(pf - lr * (step + weight_decay * pf))
+
+
+# moments and parameter keep their layout; the gradient takes the parameter's
+_adamw_region = local_region(_adamw_leaf, (3, KEEP, KEEP, KEEP, (), (), ()), ())
 
 
 # ---------------------------------------------------------------------------
