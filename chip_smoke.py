@@ -217,7 +217,19 @@ printed) and runs:
      the loss finite and falling, its gap to phase 15 (a)'s last loss,
      the step time (CUDA events, the first step apart), the exchange's
      own time, retries (none) and the reckoned and measured peak memory.
-     Neither launches an extend or decode kernel.
+     (c) tensor parallelism's form of the step on a (1, 1, 1) ``pod`` x
+     ``data`` x ``model`` mesh: phase 16 (b)'s model, batches and lr with
+     parameters, AdamW state and ``ef`` as ``DTensor`` s on the (1, 1)
+     sub-mesh under ``use_rules``; two uncompressed steps against
+     ``make_train_step`` from the same state (bitwise, or the parameters
+     within 2e-3 of the update), then 6 compressed steps: the loss finite
+     and falling and its gap to (b)'s, the step time beside (b)'s, the
+     exchange's time and the peak memory, which must fit the card.  None
+     of (a)-(c) launches an extend or decode kernel; the multi-rank checks
+     are the CPU tests' (4 gloo ranks).  (d) ``python -m
+     repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k
+     --multi-pod --compress-pod`` in a subprocess: its seconds, argument
+     and ``ef`` bytes a device, FLOPs and the pod exchange's bytes.
  17. introspection, after phase 16: (a) the registry's parameter and
      AdamW structs for phase 15 (a)'s config on a world-size-1 NCCL mesh
      equal the card's trees leaf for leaf (path, per-device shape, dtype,
@@ -2988,7 +3000,7 @@ def multipod_parity(dev, mesh) -> None:
         ef = new_ef
 
 
-def multipod_full_width(dev, mesh, phase15_losses: list[float]) -> None:
+def multipod_full_width(dev, mesh, phase15_losses: list[float]) -> dict:
     """Phase 16 (b): ``deepseek-67b`` at ``TRAIN_LAYERS`` layers, 6
     compressed multipod steps from phase 15 (a)'s parameters, batches and
     schedule."""
@@ -3061,6 +3073,191 @@ def multipod_full_width(dev, mesh, phase15_losses: list[float]) -> None:
           f"{13 * largest / 1e9:.1f} GB (13 B an element of {largest / 1e6:.0f} M)")
     check(all(np.isfinite(losses)), f"16 (b): non-finite loss {losses}")
     check(losses[-1] < losses[0], f"16 (b): loss did not fall: {losses}")
+    return {"losses": losses, "step_s": steady, "peak": peak}
+
+
+#: phase 16 (b)'s readings in PR 26's run (NVIDIA H100 80GB HBM3, 700 W)
+PHASE16B_PR26 = {"step_s": 0.8791, "peak_gb": 67.76}
+#: phase 16 (d)'s comparison: the uncompressed multi-pod train_4k cell of
+#: deepseek-67b in PR 27's dry-run table (arguments a device, FLOPs a device)
+MULTI_POD_CELL_PR27 = {"arg_gb": 2.63, "flops": 1.513e15}
+
+
+def sharded_full_width(dev, mesh, phase16b: dict) -> None:
+    """Phase 16 (c): the multipod step's sharded form (tensor parallelism)
+    on the card: ``deepseek-67b`` at ``TRAIN_LAYERS`` layers, parameters,
+    AdamW state and ``ef`` as ``DTensor`` s on the (1, 1) ``data`` x
+    ``model`` sub-mesh under the sub-mesh's rules.  Two uncompressed steps
+    against ``make_train_step`` from the same state (the two runs one
+    after the other: both states do not fit the card at once; the
+    sharded run's parameters wait on the host), then 6 compressed steps
+    timed as phase 16 (b)'s."""
+    import repro_torch.distributed.multipod as multipod
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import make_rules, place, strip_axis, use_rules
+    from repro_torch.models.common import tree_items_sorted, tree_leaves, tree_map_with_path
+    from repro_torch.models.lm import LM
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import make_optimizer, warmup_cosine
+
+    cfg = dataclasses.replace(get_config("deepseek-67b"), n_layers=TRAIN_LAYERS)
+    model = LM(cfg, device=dev)
+    t = TRAIN_FULL
+    k = cfg.train_microbatches
+    sched = warmup_cosine(TRAIN_LR[cfg.name], t["warmup"], t["steps"] + 2)
+    batches = pipeline_batches(cfg, dev, t["steps"])
+    sub = mesh["data", "model"]
+    rules = strip_axis(make_rules(multi_pod=True, fsdp=True), "pod")
+    opt = make_optimizer(cfg.optimizer)
+
+    def sharded_state():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = tree_map_with_path(lambda _, p, sp: place(p, sp.axes, rules, sub),
+                                    model.init(gen), model.specs)
+        return params, opt.init(params), multipod.ef_init(params)
+
+    def local(x):
+        return x.to_local() if hasattr(x, "to_local") else x
+
+    # (c.1) two uncompressed steps, the sharded program against make_train_step
+    before = kernel_launches()
+    step_u, _ = multipod.make_multipod_train_step(model, mesh, opt, microbatches=k,
+                                                  schedule=sched, compress=False)
+    params, opt_state, ef = sharded_state()
+    check(all(x.placements == y.placements for x, y in
+              zip(tree_leaves(params), tree_leaves(opt_state["m"])))
+          and all(x.placements == y.placements for x, y in
+                  zip(tree_leaves(params), tree_leaves(ef))),
+          "16 (c): the AdamW state or ef is not laid out like the parameters")
+    layout = sorted({str(tuple(x.placements)) for x in tree_leaves(params)})
+    sharded_losses = []
+    with use_rules(rules, sub):
+        for i in range(2):
+            params, opt_state, ef, m = step_u(params, opt_state, ef, batches[i], i)
+            sharded_losses.append(m["loss"].clone())
+    host = [(path, local(x).cpu()) for path, x in tree_items_sorted(params)]
+    del params, opt_state, ef
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    plain = model.init(gen)
+    first = [x.clone() for _, x in tree_items_sorted(plain)]
+    state = opt.init(plain)
+    single, _ = make_train_step(model, opt, microbatches=k, schedule=sched)
+    plain_losses = []
+    for i in range(2):
+        plain, state, m = single(plain, state, batches[i], i)
+        plain_losses.append(m["loss"].clone())
+    equal, worst = 0, 0.0
+    for (path, got), (_, want), b in zip(host, tree_items_sorted(plain), first):
+        got = got.to(dev)
+        equal += bool(torch.equal(got, want))
+        gap = torch.linalg.vector_norm((got - want).double())
+        upd = torch.linalg.vector_norm((want - b).double()).clamp(min=1e-30)
+        worst = max(worst, float(gap / upd))
+    n_leaves = len(first)
+    del host, plain, state, first
+    torch.cuda.empty_cache()
+    same_loss = all(torch.equal(a, b) for a, b in zip(sharded_losses, plain_losses))
+    print(f"  (c) deepseek-67b, {TRAIN_LAYERS} layers, {cfg.optimizer}, {k} microbatches, "
+          f"parameters / AdamW state / ef as DTensors on mesh['data', 'model'] "
+          f"{tuple(sub.shape)} (layouts {', '.join(layout)}), use_rules(strip_axis("
+          f"make_rules(multi_pod=True, fsdp=True), 'pod')): 2 uncompressed multipod steps "
+          f"vs make_train_step: losses {[round(float(x), 6) for x in sharded_losses]} vs "
+          f"{[round(float(x), 6) for x in plain_losses]} "
+          f"({'bitwise' if same_loss else 'not bitwise'}), "
+          f"parameters {equal} of {n_leaves} "
+          f"leaves bitwise, worst leaf {worst:.3e} of its update (limit 2e-3)")
+    check(worst <= 2e-3, f"16 (c): the sharded step's parameters are {worst:.3e} of the "
+                         f"update from make_train_step's")
+
+    # (c.2) six compressed steps, timed as phase 16 (b)'s
+    exchange: list = []
+    inner = multipod.compressed_mean
+
+    def timed_mean(*args):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = inner(*args)
+        ev[1].record()
+        exchange.append(ev)
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt_state, ef = sharded_state()
+    step, _ = multipod.make_multipod_train_step(model, mesh, opt, microbatches=k,
+                                                schedule=sched, compress=True)
+    losses, times, exch = [], [], []
+    multipod.compressed_mean = timed_mean
+    try:
+        with use_rules(rules, sub):
+            for i, batch in enumerate(batches):
+                exchange.clear()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                params, opt_state, ef, m = step(params, opt_state, ef, batch, i)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b) / 1e3)
+                exch.append(sum(x.elapsed_time(y) for x, y in exchange))
+                losses.append(float(m["loss"]))
+                print(f"    step {i}: loss {losses[-1]:.4f}, grad norm "
+                      f"{float(m['grad_norm']):.4f}, {times[-1]:.3f} s, pod exchange "
+                      f"{exch[-1]:.1f} ms ({len(exchange)} leaves)")
+    finally:
+        multipod.compressed_mean = inner
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    del params, opt_state, ef
+    steady = float(np.mean(times[1:]))
+    gap = losses[-1] - phase16b["losses"][-1]
+    print(f"    6 compressed steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; phase 16 (b) on "
+          f"the same batches {phase16b['losses'][0]:.4f} -> {phase16b['losses'][-1]:.4f}, "
+          f"last-loss gap {gap:+.6f}, worst step gap "
+          f"{max(abs(x - y) for x, y in zip(losses, phase16b['losses'])):.6f}")
+    print(f"    step time {steady:.4f} s (mean of steps 1-{t['steps'] - 1}; step 0 "
+          f"{times[0]:.3f} s) beside phase 16 (b)'s {phase16b['step_s']:.4f} s in this run "
+          f"(PR 26: {PHASE16B_PR26['step_s']} s); pod exchange "
+          f"{float(np.mean(exch[1:])):.1f} ms a step; peak memory {peak / 1e9:.2f} GB of "
+          f"{total / 1e9:.2f} GB beside phase 16 (b)'s {phase16b['peak'] / 1e9:.2f} GB "
+          f"(PR 26: {PHASE16B_PR26['peak_gb']} GB)")
+    check(all(np.isfinite(losses)), f"16 (c): non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"16 (c): loss did not fall: {losses}")
+    check(peak < total, f"16 (c): peak memory {peak} passes the card's {total}")
+    check(kernel_launches() == before,
+          f"16 (c): an extend or decode kernel launched: {before} -> {kernel_launches()}")
+
+
+def compress_pod_dryrun() -> None:
+    """Phase 16 (d): the ``--compress-pod`` cell on the production 2 x 16 x
+    16 mesh, in a subprocess (its own fake group of 512 ranks)."""
+    out = Path(tempfile.mkdtemp(prefix="repro_torch_dryrun_"))
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "deepseek-67b",
+             "--shape", "train_4k", "--multi-pod", "--compress-pod", "--out", str(out)],
+            cwd=ROOT, env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"16 (d): the dry run failed: {proc.stderr[-2000:]}")
+        rec = json.loads((out / "deepseek-67b__train_4k__multi.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    m, la = rec["memory"], rec["loop_aware"]
+    ex = la["pod_exchange"]
+    ref = MULTI_POD_CELL_PR27
+    print(f"  (d) python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k "
+          f"--multi-pod --compress-pod: {wall:.1f} s wall (trace {rec['seconds']['trace']:.1f} "
+          f"s) on {rec['devices']} fake ranks: per device arguments "
+          f"{m['argument_bytes'] / 1e9:.3f} GB, of them ef {ex['ef_bytes'] / 1e9:.3f} GB "
+          f"(the uncompressed multi-pod cell: {ref['arg_gb']} GB), {la['flops']:.4e} FLOPs "
+          f"({ref['flops']:.3e}), temp {m['temp_bytes'] / 1e9:.3f} GB; the pod exchange "
+          f"{ex['all_gathers']:.0f} all-gathers, {ex['sent_bytes'] / 1e9:.4f} GB sent and "
+          f"{ex['received_bytes'] / 1e9:.4f} GB received a device")
+    check(la["flops"] > 0 and ex["sent_bytes"] == ex["ef_bytes"] / 4 + 2 * ex["all_gathers"],
+          "16 (d): the pod exchange does not send each local shard's int8 codes and a scale")
 
 
 def distribution_phase(dev, phase15_losses: list[float]) -> None:
@@ -3079,13 +3276,19 @@ def distribution_phase(dev, phase15_losses: list[float]) -> None:
         before = kernel_launches()
         multipod_parity(dev, mesh)
         torch.cuda.empty_cache()
-        multipod_full_width(dev, mesh, phase15_losses)
+        phase16b = multipod_full_width(dev, mesh, phase15_losses)
         torch.cuda.empty_cache()
         check(kernel_launches() == before,
               f"16: an extend or decode kernel launched: {before} -> {kernel_launches()}")
+        tp = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+        print(f"  mesh {tuple(tp.shape)} {tp.mesh_dim_names} on cuda (world size 1: the "
+              f"multi-rank checks are the CPU tests' on 4 gloo ranks)")
+        sharded_full_width(dev, tp, phase16b)
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
+    compress_pod_dryrun()
 
 
 # ---------------------------------------------------------------------------

@@ -27,13 +27,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.sharding import zeros_placed
 from repro_torch.models.common import tree_leaves, tree_map_with_path, tree_unflatten
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8. Returns (q int8, scale fp32 0-d)."""
+def quantize_int8(x: torch.Tensor, max_over=()) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8. Returns (q int8, scale fp32 0-d).
+
+    ``x`` may be one shard of a tensor split over the process groups
+    ``max_over``: ``amax`` is then the whole tensor's (a maximum over the
+    groups, exact in any order), so the shard's codes are the whole
+    tensor's."""
     xf = x.float()
     amax = xf.abs().max()
+    for group in max_over:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -43,19 +51,19 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def ef_compress(g: torch.Tensor, ef: torch.Tensor):
-    """Error-feedback int8: quantize (g + residual), carry new residual."""
+def ef_compress(g: torch.Tensor, ef: torch.Tensor, max_over=()):
+    """Error-feedback int8: quantize (g + residual), carry new residual
+    (``max_over`` as in :func:`quantize_int8`)."""
     corrected = g.float() + ef
-    q, scale = quantize_int8(corrected)
+    q, scale = quantize_int8(corrected, max_over)
     deq = dequantize_int8(q, scale)
     return q, scale, corrected - deq
 
 
 def ef_state_like(grads):
-    """fp32 zeros shaped like every leaf of a dict/list/tuple tree."""
-    return tree_map_with_path(
-        lambda _, g: torch.zeros(g.shape, dtype=torch.float32, device=g.device),
-        grads)
+    """fp32 zeros shaped like every leaf of a dict/list/tuple tree (a
+    ``DTensor`` leaf's laid out like it)."""
+    return tree_map_with_path(lambda _, g: zeros_placed(g), grads)
 
 
 #: elements per slice of the mean's fp64 sum (128 MiB of fp64)
@@ -67,10 +75,12 @@ def _process_group(group):
     return group.get_group() if hasattr(group, "get_group") else group
 
 
-def compressed_mean(g: torch.Tensor, ef: torch.Tensor, group):
+def compressed_mean(g: torch.Tensor, ef: torch.Tensor, group, max_over=()):
     """One leaf of :func:`compressed_psum`: (the mean over ``group`` of
-    every rank's dequantized ``ef_compress(g, ef)``, in ``g``'s dtype; this
-    rank's new residual).
+    every rank's dequantized ``ef_compress(g, ef, max_over)``, in ``g``'s
+    dtype; this rank's new residual).  With ``max_over``, ``g`` and ``ef``
+    are one shard of a leaf split over those groups, and only the shard's
+    codes and the scale cross ``group``.
 
     The sum runs in rank order with ``repro``'s rounding (XLA's fp32 dot):
     the first term ``scale_0 · q_0`` rounded to fp32, then each further
@@ -81,7 +91,7 @@ def compressed_mean(g: torch.Tensor, ef: torch.Tensor, group):
     before it returns.
     """
     pg = _process_group(group)
-    q, scale, new_ef = ef_compress(g, ef)
+    q, scale, new_ef = ef_compress(g, ef, max_over)
     n = dist.get_world_size(pg)
     qs = [torch.empty_like(q) for _ in range(n)]
     scales = [torch.empty_like(scale) for _ in range(n)]
@@ -97,6 +107,20 @@ def compressed_mean(g: torch.Tensor, ef: torch.Tensor, group):
             flat[sl] = (flat[sl].double() + si * qi[sl].double()).float()
     del qs
     return acc.div_(n).to(g.dtype), new_ef
+
+
+def shard_of(x: torch.Tensor) -> tuple:
+    """(``x``'s local shard, the process groups of its mesh's dimensions
+    larger than 1): a ``DTensor``'s shard is its storage (a write in place
+    writes the ``DTensor``); a plain tensor is its own shard, over none."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x, ()
+    mesh = x.device_mesh
+    loc = x.to_local()
+    loc = loc.wait() if hasattr(loc, "wait") else loc
+    return loc, tuple(mesh.get_group(i) for i in range(mesh.ndim) if mesh.size(i) > 1)
 
 
 def compressed_psum(grads, ef_state, group):

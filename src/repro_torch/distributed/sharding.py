@@ -123,14 +123,50 @@ def strip_axis(rules: ShardingRules, axis: str) -> ShardingRules:
 def use_rules(rules: Optional[ShardingRules], mesh):
     """Activate ``rules`` on ``mesh`` for :func:`constrain` on this thread;
     yields the context's call counter (axes signature → calls).  With
-    either argument None, ``constrain`` stays the identity inside."""
+    either argument None, ``constrain`` stays the identity inside.
+
+    On a ``DeviceMesh`` the context is a sharded program's: a plain tensor
+    that meets a ``DTensor`` there (a RoPE table, positions, a zero to
+    start a sum: the same on every rank) is taken as replicated, as
+    ``implicit_replication`` takes it; the setting before the context is
+    restored after it, so contexts nest."""
     prev = getattr(_ctx, "state", None)
     calls: Counter = Counter()
     _ctx.state = (rules, mesh, calls) if rules is not None and mesh is not None else None
+    dispatcher = None
+    if _ctx.state is not None and getattr(mesh, "mesh_dim_names", None) is not None:
+        from torch.distributed.tensor import DTensor
+
+        dispatcher = DTensor._op_dispatcher
+        implicit = dispatcher._allow_implicit_replication
+        dispatcher._allow_implicit_replication = True
     try:
         yield calls
     finally:
         _ctx.state = prev
+        if dispatcher is not None:
+            dispatcher._allow_implicit_replication = implicit
+
+
+def in_context(fn):
+    """``fn`` run inside this thread's rules context as it is now, on
+    whichever thread calls it: remat recomputes a forward during the
+    backward pass, which autograd runs on its own thread for a CUDA tensor,
+    where this thread's context is not active.  ``fn`` itself outside a
+    context."""
+    st = getattr(_ctx, "state", None)
+    if st is None:
+        return fn
+
+    def run(*args, **kwargs):
+        prev = getattr(_ctx, "state", None)
+        _ctx.state = st
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ctx.state = prev
+
+    return run
 
 
 def active() -> Optional[tuple]:
@@ -199,6 +235,16 @@ def safe_sharding(shape, axes, rules: ShardingRules, mesh) -> tuple:
     return mesh, placements(safe_spec(tuple(shape), tuple(axes), rules, mesh), mesh)
 
 
+def place(x, axes, rules: ShardingRules, mesh):
+    """``x``, which every rank holds whole, as a ``DTensor`` laid out by
+    :func:`safe_sharding` of its logical ``axes``: each rank keeps its own
+    shard, and nothing crosses the group.  The shard may share ``x``'s
+    storage (an update in place then writes ``x``)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, *safe_sharding(x.shape, axes, rules, mesh), src_data_rank=None)
+
+
 def constrain(x, *axes: Optional[str]):
     """Annotate activation ``x`` with logical axes (the identity outside a
     context; see the module docstring)."""
@@ -213,6 +259,31 @@ def constrain(x, *axes: Optional[str]):
         return x.redistribute(mesh, placements(safe_spec(tuple(x.shape), axes, rules, mesh),
                                                mesh))
     return x
+
+
+def zeros_placed(p, drop: Optional[int] = None):
+    """fp32 zeros shaped like ``p``, without dimension ``drop`` if given
+    (a factored moment); for a ``DTensor`` laid out like it, a shard along
+    ``drop`` replicated and a shard past it one dimension down."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models.common import contiguous_strides, local_shape
+
+    shape = tuple(p.shape)
+    if drop is not None:
+        drop %= len(shape)
+        shape = shape[:drop] + shape[drop + 1:]
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    pl = tuple(p.placements)
+    if drop is not None:
+        pl = tuple(Replicate() if q.is_shard(drop) else Shard(q.dim - 1)
+                   if q.is_shard() and q.dim > drop else q for q in pl)
+    mesh = p.device_mesh
+    local = torch.zeros(local_shape(shape, tuple(mesh.shape), pl), dtype=torch.float32,
+                        device=p.to_local().device)
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
 
 
 #: a ``local_region`` argument spec: the ``DTensor`` keeps its placements
@@ -375,6 +446,28 @@ class _SumReplicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def once_over(t, *entries):
+    """``t``, a value every rank of a local region computes whole from
+    inputs the region takes as replicated, with its gradient divided by the
+    ranks along the mesh dimensions of ``entries`` (the region's split):
+    the inputs' gradients are partial sums over those ranks (:func:`run_local`),
+    so the value's own gradient is then counted once.  The value is
+    unchanged."""
+    n = math.prod(mesh_coords(active()[1], e)[1] for e in entries)
+    return t if n == 1 or not t.requires_grad else _ScaleGrad.apply(t, 1.0 / n)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, factor):
+        ctx.factor = factor
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
 
 
 def mesh_coords(mesh, entry) -> tuple:

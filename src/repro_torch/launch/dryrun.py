@@ -12,9 +12,14 @@ eagerly on fake tensors:
      (``models/registry.py``) as ``DTensor`` s of fake CPU shards under a
      ``FakeTensorMode``, so every kernel wrapper takes its plain route;
   3. the step (the train step with its backward and optimizer update,
-     prefill, or a decode step) runs inside ``use_rules`` and
-     ``implicit_replication`` under ``launch/op_analysis.py``'s
-     :class:`OpCounter`, which counts rank 0's local ops and collectives;
+     prefill, or a decode step) runs inside ``use_rules`` under
+     ``launch/op_analysis.py``'s :class:`OpCounter`, which counts rank 0's
+     local ops and collectives; with ``--compress-pod`` a multi-pod train
+     cell runs the multipod step as ``repro``'s does (pod by hand, the
+     sharded program on the ``data`` × ``model`` sub-mesh inside, ``ef``
+     laid out like the parameters) and its record adds ``pod_exchange``
+     (the int8 exchange's all-gathers: bytes sent and received a device,
+     and the ``ef`` bytes);
   4. one JSON per cell goes to ``results/dryrun_torch/`` (never
      ``results/dryrun/``, which ``repro``'s roofline reads), with
      ``repro``'s keys where the quantity is the same: ``memory``
@@ -27,6 +32,8 @@ eagerly on fake tensors:
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--cells train_4k,...]
+  python -m repro_torch.launch.dryrun --arch deepseek-67b --shape train_4k \
+      --multi-pod --compress-pod
 """
 from __future__ import annotations
 
@@ -59,6 +66,14 @@ def _rules_for(cfg, shape, *, multi_pod: bool):
     return rules
 
 
+def _cell_rules(cfg, shape, *, multi_pod: bool, rules_overrides: dict | None = None):
+    rules = _rules_for(cfg, shape, multi_pod=multi_pod)
+    if rules_overrides:
+        rules = rules.with_overrides(
+            **{k: tuple(v) if isinstance(v, list) else v for k, v in rules_overrides.items()})
+    return rules
+
+
 def build_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
                overrides: dict | None = None, compress_pod: bool = False,
                rules_overrides: dict | None = None, cfg=None, mesh=None,
@@ -83,10 +98,7 @@ def build_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
     shape = SHAPES[shape_name]
     mesh = mesh if mesh is not None else make_production_mesh(multi_pod=multi_pod,
                                                               device_type="cpu")
-    rules = _rules_for(cfg, shape, multi_pod=multi_pod)
-    if rules_overrides:
-        rules = rules.with_overrides(
-            **{k: tuple(v) if isinstance(v, list) else v for k, v in rules_overrides.items()})
+    rules = _cell_rules(cfg, shape, multi_pod=multi_pod, rules_overrides=rules_overrides)
     bundle = get_bundle(cfg)
     if depth is not None:
         bundle = bundle.with_depth(depth)
@@ -94,16 +106,31 @@ def build_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
 
     if shape.kind == "train":
         opt = make_optimizer(cfg.optimizer)
-        opt_state = bundle.opt_state_structs(opt, params, rules, mesh, device="cpu")
         k = cfg.train_microbatches
         if microbatches is not None:
             shape = dataclasses.replace(shape, global_batch=shape.global_batch // k * microbatches)
             k = microbatches
         batch = bundle.train_batch_structs(shape, rules, mesh, device="cpu")
         if compress_pod and multi_pod:
+            # repro's: pod by hand, data and model the sharded program's inside
             from repro_torch.distributed.multipod import make_multipod_train_step
+            from repro_torch.distributed.sharding import strip_axis
+            from repro_torch.models.common import make_struct, tree_map_with_path
 
-            make_multipod_train_step(bundle.model, mesh, opt)   # refuses model > 1
+            inner, sub = strip_axis(rules, "pod"), mesh["data", "model"]
+            params = bundle.param_structs(inner, sub, device="cpu")
+            opt_state = bundle.opt_state_structs(opt, params, inner, sub, device="cpu")
+            ef = tree_map_with_path(
+                lambda _, p: make_struct(p.shape, torch.float32, (sub, p.placements), "cpu"),
+                params)
+            mp_step, _ = make_multipod_train_step(bundle.model, mesh, opt, microbatches=k)
+
+            def fn(p, o, e, b, s):
+                with use_rules(inner, sub):
+                    return mp_step(p, o, e, b, s)
+
+            return fn, (params, opt_state, ef, batch, 0), mesh, rules, bundle, shape
+        opt_state = bundle.opt_state_structs(opt, params, rules, mesh, device="cpu")
         train_step, _ = make_train_step(bundle.model, opt, microbatches=k)
 
         def fn(p, o, b, s):
@@ -155,7 +182,6 @@ def _trace(arch_name, shape_name, *, mesh, **kw) -> tuple:
     """One traced run of a cell: (op_analysis' result, argument bytes,
     output bytes, build seconds, trace seconds, counter, bundle, shape)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.launch.op_analysis import OpCounter
     from repro_torch.models.common import struct_bytes
@@ -165,11 +191,17 @@ def _trace(arch_name, shape_name, *, mesh, **kw) -> tuple:
         fn, args, mesh, rules, bundle, shape = build_cell(arch_name, shape_name, mesh=mesh, **kw)
         arg_bytes = sum(struct_bytes(x) for x in _leaves(args))
         t1 = time.time()
-        with implicit_replication(), OpCounter(memory=True) as counter:
+        with OpCounter(memory=True) as counter:
             out = fn(*args)
         out_bytes = sum(struct_bytes(x) for x in _leaves(out))
-    return (counter.result(), arg_bytes, out_bytes, t1 - t0, time.time() - t1, counter,
-            bundle, shape)
+    res = counter.result()
+    if kw.get("compress_pod") and kw.get("multi_pod") and shape.kind == "train":
+        n, got, sent = counter.collectives_in("compression.compressed_mean").get(
+            "all-gather", (0, 0.0, 0.0))
+        # the int8 codes and one fp32 scale a leaf; the ef tree is args[2]
+        res["pod_exchange"] = {"all_gathers": n, "sent_bytes": sent, "received_bytes": got,
+                               "ef_bytes": sum(struct_bytes(x) for x in _leaves(args[2]))}
+    return (res, arg_bytes, out_bytes, t1 - t0, time.time() - t1, counter, bundle, shape)
 
 
 def _flat(d: dict, prefix=()) -> dict:
@@ -208,6 +240,22 @@ def _extend(base: dict, probes: list, counts: list) -> dict:
     return _nest(out)
 
 
+def side_by_side(cfg, shape, mesh, *, multi_pod: bool, rules_overrides=None) -> int:
+    """Microbatches a pass of a train cell's step runs side by side
+    (``train.loop``: a rank holding fewer rows than microbatches runs k/p
+    of them in each of its p passes); 1 for other cells."""
+    from repro_torch.distributed.sharding import _axis_size, mesh_shape, safe_spec
+    from repro_torch.train.loop import passes
+
+    if shape.kind != "train":
+        return 1
+    rules = _cell_rules(cfg, shape, multi_pod=multi_pod, rules_overrides=rules_overrides)
+    gb = shape.global_batch
+    entry = safe_spec((gb, shape.seq_len), ("batch", None), rules, mesh)[0]
+    k = cfg.train_microbatches
+    return k // passes(gb // _axis_size(mesh_shape(mesh), entry), k)
+
+
 def trace_cell(arch_name: str, shape_name: str, *, multi_pod: bool = False,
                overrides: dict | None = None, compress_pod: bool = False,
                rules_overrides: dict | None = None, cfg=None, mesh=None,
@@ -217,8 +265,9 @@ def trace_cell(arch_name: str, shape_name: str, *, multi_pod: bool = False,
 
     ``loop_aware`` (the default) traces the stack at one period per
     segment (and one encoder layer) and at two periods in each in turn,
-    and for a train cell at one and two microbatches, then extends every
-    count linearly to the full depth and microbatches: per-device FLOPs,
+    and for a train cell at one and two passes of its step (g and 2g
+    microbatches, :func:`side_by_side`), then extends every count linearly
+    to the full depth and passes: per-device FLOPs,
     bytes and collectives are exactly linear in them, so this equals the
     full trace (the tests check it on a reduced stack) at the cost of a
     few periods.  ``temp_bytes`` extends the same way, which holds while
@@ -258,10 +307,12 @@ def trace_cell(arch_name: str, shape_name: str, *, multi_pod: bool = False,
 
         ones = [1] * len(depth)
         bumps = [ones[:i] + [2] + ones[i + 1:] for i in range(len(depth))]
-        ks = [1, 2] if SHAPES[shape_name].kind == "train" else [None]
-        per_k = [_extend(run(ones, k)[0], [run(b, k)[0] for b in bumps], depth) for k in ks]
-        res = per_k[0] if len(ks) == 1 else _extend(per_k[0], [per_k[1]],
-                                                    [full_cfg.train_microbatches])
+        k = full_cfg.train_microbatches
+        g = side_by_side(full_cfg, SHAPES[shape_name], mesh, multi_pod=multi_pod,
+                         rules_overrides=rules_overrides)
+        ks = [g, 2 * g] if SHAPES[shape_name].kind == "train" else [None]
+        per_k = [_extend(run(ones, kk)[0], [run(b, kk)[0] for b in bumps], depth) for kk in ks]
+        res = per_k[0] if len(ks) == 1 else _extend(per_k[0], [per_k[1]], [k // g])
         counter = run(ones, ks[0])[5]
         t_trace = sum(r[4] for r in runs.values())
         with FakeTensorMode():

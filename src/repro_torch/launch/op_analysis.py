@@ -119,7 +119,8 @@ class OpCounter(TorchDispatchMode):
         self.coll = defaultdict(float)
         self.coll_count = defaultdict(int)
         self.kernels: dict = defaultdict(lambda: {"calls": 0, "flops": 0, "bytes": 0})
-        self.by_path: dict = defaultdict(lambda: [0.0, 0.0, 0.0, 0])  # flops, bytes, coll, ops
+        # flops, bytes, coll, ops, and a collective's operand bytes (what a rank sends)
+        self.by_path: dict = defaultdict(lambda: [0.0, 0.0, 0.0, 0, 0.0])
         self._in_kernel = 0
         self._labels: dict = {}
         self.memory = memory
@@ -305,6 +306,7 @@ class OpCounter(TorchDispatchMode):
         self.coll[kind] += wire
         self.coll_count[kind] += 1
         rec[2] += wire
+        rec[4] += operand_b
 
     # -- results -------------------------------------------------------------
     def result(self) -> dict:
@@ -320,6 +322,19 @@ class OpCounter(TorchDispatchMode):
         }
         if self.memory:
             out["peak_bytes"] = int(self.peak)
+        return out
+
+    def collectives_in(self, fn: str) -> dict:
+        """Kind → (count, result bytes, operand bytes) of the collectives
+        dispatched under the port's function ``fn`` (``"module.name"``, as
+        in a code path)."""
+        out: dict = {}
+        for (path, op), rec in self.by_path.items():
+            kind = _collective_kind(op.rsplit(".", 1)[-1])
+            if kind is None or rec[2] == 0 or fn not in path.split(">"):
+                continue
+            n, res, sent = out.get(kind, (0, 0.0, 0.0))
+            out[kind] = (n + rec[3], res + rec[2], sent + rec[4])
         return out
 
     def top_contributors(self, n: int = 15, metric: str = "hbm") -> list:

@@ -53,8 +53,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts, noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import (active, all_reduce_over, constrain, local_region,
-                                              mesh_coords)
+from repro_torch.distributed.sharding import (active, all_reduce_over, constrain, in_context,
+                                              local_region, mesh_coords)
 
 from . import attention as attn
 from . import mla as mla_mod
@@ -500,7 +500,8 @@ class LM:
         aux = zero
         for (period, n), seg_params in zip(self.segments, params["segments"]):
             layers = [_unstack(seg_params[f"p{j}"]) for j in range(len(period))]
-            body = functools.partial(self._period, period, positions, ctx)
+            # remat's recomputation runs on autograd's thread: keep the rules
+            body = in_context(functools.partial(self._period, period, positions, ctx))
             seg_aux = zero
             for i in range(n):
                 args = (x, seg_aux, [layers[j][i] for j in range(len(period))])
@@ -720,7 +721,9 @@ def _token_ce_plain(logits, targets, *, vocab: int):
 def _token_ce_sharded(logits, targets, *, vocab: int):
     rules, mesh = active()
     n = logits.shape[-1]
-    entry = rules.rules.get("vocab") if n < vocab else None
+    if n == vocab:          # a rank holding the whole vocabulary scores it alone
+        return _token_ce_plain(logits, targets, vocab=vocab)
+    entry = rules.rules.get("vocab")
     lo = n * mesh_coords(mesh, entry)[0]
     lg = logits.float()
     m = all_reduce_over(lg.amax(-1), "max", entry)

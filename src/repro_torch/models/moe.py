@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.sharding import (active, all_reduce_over, constrain, local_region,
-                                              mesh_coords)
+                                              mesh_coords, once_over)
 
 from .common import activation_fn, dense
 
@@ -249,7 +249,10 @@ def _moe_sharded(x, router, w_gate, w_up, w_down, *, cfg, activation, groups, pl
         auxes.append(r.aux)
     out = all_reduce_over(torch.cat(outs).reshape(b, s, d), "sum", e_entry)
     out = all_reduce_over(out, "sum", f_entry)
-    return out, auxes[0] if groups == 1 else torch.stack(auxes).mean()
+    # every rank of the split computes the whole aux loss from the replicated
+    # router and tokens: its gradient reaches them once, not once a rank
+    aux = auxes[0] if groups == 1 else torch.stack(auxes).mean()
+    return out, once_over(aux, e_entry, f_entry)
 
 
 _EXPERT_IN = ("experts", None, "ff")

@@ -16,6 +16,8 @@ the state is then half updated.
 """
 from __future__ import annotations
 
+import copy
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -41,10 +43,14 @@ class UpdateInterrupted(RuntimeError):
 
 
 def _split_microbatches(batch: dict, k: int) -> dict:
-    """Each entry (b, ...) as (k, b/k, ...): rows [i·b/k, (i+1)·b/k) form
-    microbatch i.  In a sharded program whose ranks hold a multiple of k
-    rows each, microbatch i is every rank's i-th k-th of its own rows
-    instead (the same gradient mean, without moving a row)."""
+    """Each entry (b, ...) as (p, b/p, ...), pass i's rows at index i.
+
+    On plain tensors p = k and rows [i·b/k, (i+1)·b/k) form microbatch i.
+    In a sharded program no row moves: a rank holding r rows runs p =
+    gcd(k, r) passes, pass i its i-th p-th of its rows.  When p < k the
+    batch shards form k/p groups of consecutive ranks and a pass runs k/p
+    microbatches side by side, one a group, each as many rows as on plain
+    tensors (rank r of n holds rows [r·b/n, (r+1)·b/n))."""
     def re(x):
         b = x.shape[0]
         if b % k:
@@ -54,12 +60,16 @@ def _split_microbatches(batch: dict, k: int) -> dict:
     return {kk: re(v) for kk, v in batch.items()}
 
 
+def passes(rows: int, k: int) -> int:
+    """Passes of a step over ``k`` microbatches when a rank holds ``rows``
+    rows (the rank's rows split evenly, no row computed twice)."""
+    return math.gcd(rows, k)
+
+
 def _split_rows(x, *, k: int):
     b = x.shape[0]
-    if b % k:
-        raise ValueError(f"a rank's {b} rows do not split into {k} microbatches: a "
-                         "microbatch would hold fewer rows than the batch has shards")
-    return x.reshape(k, b // k, *x.shape[1:])
+    p = passes(b, k)
+    return x.reshape(p, b // p, *x.shape[1:])
 
 
 def _behind_microbatch(ins):
@@ -68,6 +78,15 @@ def _behind_microbatch(ins):
 
 
 _split_region = local_region(_split_rows, (KEEP,), (_behind_microbatch,))
+
+
+def _side_by_side(model, g: int):
+    """``model`` over a pass of ``g`` microbatches side by side: the MoE
+    routes each microbatch's tokens as its own groups (``moe_groups`` × g;
+    a pass's loss is then the mean of its microbatches' losses)."""
+    lm = copy.copy(model)
+    lm.cfg = model.cfg.replace(moe_groups=model.cfg.moe_groups * g)
+    return lm
 
 
 def make_train_step(
@@ -100,18 +119,20 @@ def make_train_step(
                 for p in leaves]
         lsum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         mbs = _split_microbatches(batch, k)
-        for i in range(k):
+        n = next(iter(mbs.values())).shape[0]
+        lm = model if n == k else _side_by_side(model, k // n)
+        for i in range(n):
             live = [p.detach().requires_grad_() for p in leaves]
-            loss, _ = model.loss_fn(tree_unflatten(params, live),
-                                    {kk: v[i] for kk, v in mbs.items()})
+            loss, _ = lm.loss_fn(tree_unflatten(params, live),
+                                 {kk: v[i] for kk, v in mbs.items()})
             grads = torch.autograd.grad(loss, live, allow_unused=True)
             for a, g in zip(gsum, grads):
                 if g is not None:
                     a.add_(g)
             lsum = lsum + loss.detach()
-            del live, loss, grads     # one microbatch's gradients alive at a time
+            del live, loss, grads     # one pass's gradients alive at a time
         for a in gsum:
-            a.div_(k)
+            a.div_(n)
         grads = tree_unflatten(params, gsum)
         if grad_transform is not None:
             grads = grad_transform(grads)
@@ -124,7 +145,7 @@ def make_train_step(
             params, opt_state = opt.update(grads, opt_state, params, lr)
         except Exception as exc:
             raise UpdateInterrupted(f"optimizer update of step {step} failed") from exc
-        return params, opt_state, {"loss": lsum / k, "grad_norm": gnorm, "lr": lr}
+        return params, opt_state, {"loss": lsum / n, "grad_norm": gnorm, "lr": lr}
 
     return train_step, opt
 

@@ -4,7 +4,9 @@ The counterpart of ``repro.train.optim``: the same formulas, defaults and
 state trees (AdamW ``{"m", "v", "count"}``, Adafactor ``{"per_param":
 {"vr", "vc"} | {"v"}, "count"}``, moments in fp32 with the parameter tree's
 structure), each update computed in fp32 and cast back to the parameter's
-dtype.  ``torch.optim.AdamW`` is not this AdamW: its denominator is
+dtype.  ``init`` places each moment like its parameter (a ``DTensor``'s
+placements; Adafactor's factored moments without the dimension they drop).
+``torch.optim.AdamW`` is not this AdamW: its denominator is
 ``sqrt(v)/sqrt(bc2) + eps`` where ``repro``'s is ``sqrt(v/bc2) + eps``.
 
 ``update(grads, state, params, lr)`` writes the new parameters and moments
@@ -22,7 +24,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import KEEP, local_region
+from repro_torch.distributed.sharding import KEEP, local_region, zeros_placed
 from repro_torch.models.common import tree_items_sorted, tree_leaves, tree_map_with_path
 
 #: elements per slice of an in-place AdamW update (64 MiB of fp32)
@@ -84,7 +86,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1) -> Optimizer:
     def init(params):
         def zeros(_, p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            return zeros_placed(p)
         return {"m": tree_map_with_path(zeros, params),
                 "v": tree_map_with_path(zeros, params),
                 "count": _count(params)}
@@ -126,17 +128,21 @@ _adamw_region = local_region(_adamw_leaf, (3, KEEP, KEEP, KEEP, (), (), ()), ())
 def _moment_shapes(shape: tuple) -> dict:
     """Adafactor's second-moment leaves for a parameter of ``shape``: row
     and column means for a matrix (or a stack of them), else one full."""
-    if len(shape) >= 2:
-        return {"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}
-    return {"v": shape}
+    return {k: shape[:d] + shape[d + 1:] if d is not None else shape
+            for k, d in _moment_drops(len(shape)).items()}
+
+
+def _moment_drops(ndim: int) -> dict:
+    """Each second-moment leaf's dimension of the parameter it drops (None:
+    the full moment)."""
+    return {"vr": ndim - 1, "vc": ndim - 2} if ndim >= 2 else {"v": None}
 
 
 def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
               decay_exp: float = 0.8, weight_decay: float = 0.0) -> Optimizer:
     def init(params):
         def per_param(_, p):
-            return {k: torch.zeros(s, dtype=torch.float32, device=p.device)
-                    for k, s in _moment_shapes(tuple(p.shape)).items()}
+            return {k: zeros_placed(p, d) for k, d in _moment_drops(p.ndim).items()}
         return {"per_param": tree_map_with_path(per_param, params),
                 "count": _count(params)}
 

@@ -8,8 +8,11 @@ Three subprocesses run side by side and write files the tests read:
   layers and 4 microbatches that the loop-aware count (one and two
   periods, one and two microbatches, extended) equals the full trace;
 * a fake group of 8 does the same cells on a (2, 2, 2) ``pod`` × ``data``
-  × ``model`` mesh, and builds the ``--compress-pod`` cell, which the
-  port's multipod step refuses (a ``model`` dimension larger than 1);
+  × ``model`` mesh, traces the ``--compress-pod`` cell (the multipod step
+  over ``pod`` with the sharded program inside), and a train cell whose
+  ranks hold fewer rows than its microbatches (reduced deepseek-v2-236b at
+  128 microbatches: 64 rows a rank, so each pass runs 2 microbatches side
+  by side) beside the same cell at 64;
 * the command line at full size (``mamba2-130m`` ``long_500k`` on a fake
   group of 256 ranks).
 
@@ -70,12 +73,25 @@ SCRIPT = textwrap.dedent("""
                 trace_cell("deepseek-67b", cell, cfg=cfg, mesh=mesh, loop_aware=la)
                 for la in (False, True)]
     else:
-        try:
-            build_cell("deepseek-67b", "train_4k", multi_pod=True, compress_pod=True,
-                       cfg=small("deepseek-67b"), mesh=mesh)
-            out["compress_pod"] = "built"
-        except NotImplementedError as e:
-            out["compress_pod"] = str(e)
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.distributed.sharding import strip_axis
+        from repro_torch.launch.dryrun import _rules_for
+        from repro_torch.configs.base import SHAPES
+        from repro_torch.models.common import struct_local, tree_leaves
+        from repro_torch.models.registry import get_bundle
+
+        cfg = small("deepseek-67b")
+        out["compress_pod"] = trace_cell("deepseek-67b", "train_4k", multi_pod=True,
+                                         compress_pod=True, cfg=cfg, mesh=mesh, loop_aware=False)
+        rules = strip_axis(_rules_for(cfg, SHAPES["train_4k"], multi_pod=True), "pod")
+        with FakeTensorMode():
+            leaves = tree_leaves(get_bundle(cfg).param_structs(rules, mesh["data", "model"],
+                                                               device="cpu"))
+            out["local_params"] = (sum(struct_local(x).numel() for x in leaves), len(leaves))
+        out["side_by_side"] = {
+            k: trace_cell("deepseek-v2-236b", "train_4k", multi_pod=True, mesh=mesh,
+                          cfg=small("deepseek-v2-236b").replace(train_microbatches=k))
+            for k in (128, 64)}
     with open(sys.argv[1], "w") as f:
         json.dump(out, f)
 """)
@@ -138,8 +154,42 @@ def test_every_cell_traces_on_a_2x2x2_mesh(runs, name):
     check_cells(runs["multi"], name, 8)
 
 
-def test_compress_pod_refuses_tensor_parallelism(runs):
-    assert "model" in runs["multi"]["compress_pod"] and runs["multi"]["compress_pod"] != "built"
+def test_compress_pod_cell_traces(runs):
+    """The multipod step with tensor parallelism: the sharded program's
+    FLOPs (the uncompressed multi-pod cell's: the exchange has no
+    product), ``ef`` laid out like the parameters among the arguments."""
+    multi = runs["multi"]
+    rec = multi["compress_pod"]
+    plain = multi["cells"]["deepseek-67b|train_4k"]["rec"]
+    assert rec["devices"] == 8 and rec["kind"] == "train"
+    assert rec["loop_aware"]["flops"] == plain["loop_aware"]["flops"] > 0
+    ex = rec["loop_aware"]["pod_exchange"]
+    local, _ = multi["local_params"]
+    assert ex["ef_bytes"] == 4 * local
+    assert rec["memory"]["argument_bytes"] == plain["memory"]["argument_bytes"] + ex["ef_bytes"]
+
+
+def test_compress_pod_exchange_sends_each_local_shard_in_int8(runs):
+    """Two all-gathers a leaf over ``pod``: a rank sends its shard's int8
+    codes and one fp32 scale (the local parameter elements + 4 bytes a
+    leaf), and receives both pods'."""
+    multi = runs["multi"]
+    ex = multi["compress_pod"]["loop_aware"]["pod_exchange"]
+    local, leaves = multi["local_params"]
+    assert ex["all_gathers"] == 2 * leaves
+    assert ex["sent_bytes"] == local + 4 * leaves
+    assert ex["received_bytes"] == 2 * ex["sent_bytes"]
+
+
+def test_fewer_rows_than_microbatches_runs_them_side_by_side(runs):
+    """64 rows a rank and 128 microbatches of 2 rows: the cell traces, its
+    passes running 2 microbatches side by side (one row of each a rank), at
+    the per-device FLOPs of the same cell at 64 microbatches (one row of
+    each a rank; routing groups of 2 rows against 4) within 1 %."""
+    k128, k64 = (runs["multi"]["side_by_side"][k] for k in ("128", "64"))
+    for rec in (k128, k64):
+        assert rec["kind"] == "train" and rec["loop_aware"]["flops"] > 0
+    assert abs(k128["loop_aware"]["flops"] / k64["loop_aware"]["flops"] - 1) < 0.01
 
 
 @pytest.mark.parametrize("cell", ["train_4k", "prefill_32k", "decode_32k"])

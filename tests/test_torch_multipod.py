@@ -15,8 +15,8 @@ One module-scoped run of each side, every test only reading what they wrote:
   mesh: the same exchange and steps from the same parameters, carried on to
   ``test_multipod.py``'s 25-step contract, MoE on a (4, 1) mesh (``data`` 1:
   the router's groups are then ``repro``'s; on (2, 2) they are those of
-  ``repro``'s (4, 1, 1), not its (2, 2, 1)), a ``model`` dimension refused;
-  then rank 0 alone on a world-size-1 mesh: the uncompressed step against
+  ``repro``'s (4, 1, 1), not its (2, 2, 1)); then rank 0 alone on a
+  world-size-1 mesh: the uncompressed step against
   ``make_train_step`` and ``compressed_psum`` against ``ef_compress``.
 """
 import pickle
@@ -161,12 +161,6 @@ WORKER = textwrap.dedent("""
             moe_mesh = init_device_mesh("cpu", (4, 1), mesh_dim_names=("pod", "data"))
             res[("mixtral-8x7b", True)] = train(inp, "mixtral-8x7b", moe_mesh, True, 2)
             res[("mixtral-8x7b", (2, 2))] = train(inp, "mixtral-8x7b", mesh, False, 3)
-            tp_mesh = init_device_mesh("cpu", (1, 2, 2), mesh_dim_names=("pod", "data", "model"))
-            try:
-                make_multipod_train_step(LM(reduced(get_config("qwen3-32b")), device="cpu"),
-                                         tp_mesh, microbatches=2)
-            except NotImplementedError as exc:
-                res["tp_refused"] = str(exc)
         finally:
             dist.destroy_process_group()
         if rank == 0:
@@ -346,12 +340,6 @@ def test_compressed_contract_over_25_steps(runs):
     lu = ranks[0][("qwen3-32b", False)][0][-1]
     assert lc < 6.25 - 0.2, f"compressed did not learn: {lc}"
     assert abs(lc - lu) < 0.15, (lc, lu)
-
-
-def test_model_parallel_mesh_is_refused(runs):
-    _, _, ranks = runs
-    for res in ranks:
-        assert "tensor parallelism" in res["tp_refused"]
 
 
 def test_world_size_one_uncompressed_step_is_make_train_step(runs):
