@@ -17,6 +17,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Literal, Optional
 
+from .. import obs
 from .cost import CostModel
 from .descriptors import Range, coalesce
 from .families import get_family
@@ -67,19 +68,25 @@ class IncrementalAnalyticsEngine:
     # ------------------------------------------------------------------
     def query(self, family_name: str, rng: Range, *, force_baseline: bool = False,
               **overrides: Any) -> QueryResult:
+        with obs.span("analytics.query"):
+            return self._query(family_name, rng, force_baseline, overrides)
+
+    def _query(self, family_name: str, rng: Range, force_baseline: bool,
+               overrides: dict) -> QueryResult:
         family = get_family(family_name)
         params = {**family.defaults, **overrides}
         if family_name in ("gaussian_nb", "multinomial_nb") and "n_classes" not in overrides:
             params["n_classes"] = getattr(self.backend, "n_classes", params["n_classes"])
 
-        base = baseline_plan(rng, self.cost)
-        plan = shortest_plan(
-            self.store.index(family_name),
-            rng,
-            self.cost,
-            self.store.model_bytes(family_name),
-            directed=not family.supports_delete,
-        )
+        with obs.span("analytics.plan"):
+            base = baseline_plan(rng, self.cost)
+            plan = shortest_plan(
+                self.store.index(family_name),
+                rng,
+                self.cost,
+                self.store.model_bytes(family_name),
+                directed=not family.supports_delete,
+            )
         self.stats["optimizer_s"] += plan.optimizer_seconds
 
         use_reuse = (plan.cost < base.cost) and not force_baseline

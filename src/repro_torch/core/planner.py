@@ -1,22 +1,24 @@
 """Plan execution (Fig 1c) and edit-rebuild planning.
 
-A framework-free copy of ``repro.core.planner``.  ``execute`` turns an
-optimizer path into a solved model: group families combine/uncombine
-materialized statistics and scan only the base-data segments the plan asks
-for; chunking families (logreg) fit chunk models for uncovered segments
-(Alg 2 lines 9–11), one ``fit_chunks`` call per segment, and may
-materialize them for future queries.
+A copy of ``repro.core.planner``.  ``execute`` turns an optimizer path
+into a solved model: group families combine/uncombine materialized
+statistics and scan only the base-data segments the plan asks for; chunking
+families (logreg) fit chunk models for uncovered segments (Alg 2 lines
+9–11), one ``fit_chunks`` call per segment, and may materialize them for
+future queries.  Its timings are the clock readings of its spans
+(``analytics.fetch`` / ``stats`` / ``combine`` / ``solve``,
+:mod:`repro_torch.obs`).
 ``plan_edit`` prices serving an edited document (reuse-prefix +
 rebuild-suffix).
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
 
+from .. import obs
 from .cost import CostModel
 from .descriptors import DescriptorIndex, Range, covered_size
 from .families import ModelFamily
@@ -29,9 +31,9 @@ class ExecTimings:
     """Fig 5 decomposition."""
 
     optimizer_s: float = 0.0
-    io_s: float = 0.0        # base-data fetches + model loads
-    compute_s: float = 0.0   # stats passes / chunk SGD
-    merge_s: float = 0.0     # stat combine/uncombine + solve
+    io_s: float = 0.0        # base-data fetches + model loads (analytics.fetch)
+    compute_s: float = 0.0   # stats passes / chunk SGD (analytics.stats)
+    merge_s: float = 0.0     # combine/uncombine + solve (analytics.combine, .solve)
 
     @property
     def total_s(self) -> float:
@@ -69,39 +71,42 @@ def execute(
     with store.pinned(plan.models_used):
         for step in plan.steps:
             if step.model_id is not None:
-                t0 = time.perf_counter()
-                stats = store.get(step.model_id).stats
-                timings.io_s += time.perf_counter() - t0
+                with obs.timed("analytics.fetch") as t:
+                    stats = store.get(step.model_id).stats
+                timings.io_s += t.s
             else:
-                t0 = time.perf_counter()
-                X, y = backend.fetch(step.rng)
-                timings.io_s += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                if family.fit_chunks is not None and materialize_chunks:
-                    # fit the step's chunks in one call, materialize each (§4)
-                    stats = None
-                    for k, cs in enumerate(family.fit_chunks(X, y, params)):
-                        lo = step.rng.lo + k * chunk_size
-                        sub = Range(lo, min(lo + chunk_size, step.rng.hi))
-                        new_ids.append(store.put(family.name, sub, cs, meta={"chunked": True}))
-                        stats = cs if stats is None else stats + cs
-                else:
-                    stats = family.compute_stats(X, y, params)
-                timings.compute_s += time.perf_counter() - t0
+                with obs.timed("analytics.fetch") as t:
+                    X, y = backend.fetch(step.rng)
+                timings.io_s += t.s
+                with obs.timed("analytics.stats") as t:
+                    if family.fit_chunks is not None and materialize_chunks:
+                        # fit the step's chunks in one call, materialize each (§4)
+                        stats = None
+                        for k, cs in enumerate(family.fit_chunks(X, y, params)):
+                            lo = step.rng.lo + k * chunk_size
+                            sub = Range(lo, min(lo + chunk_size, step.rng.hi))
+                            new_ids.append(store.put(family.name, sub, cs,
+                                                     meta={"chunked": True}))
+                            stats = cs if stats is None else stats + cs
+                    else:
+                        stats = family.compute_stats(X, y, params)
+                timings.compute_s += t.s
 
-            t0 = time.perf_counter()
-            if step.sign > 0:
-                pos = stats if pos is None else pos + stats
-            else:
-                neg = stats if neg is None else neg + stats
-            timings.merge_s += time.perf_counter() - t0
+            with obs.timed("analytics.combine") as t:
+                if step.sign > 0:
+                    pos = stats if pos is None else pos + stats
+                else:
+                    neg = stats if neg is None else neg + stats
+            timings.merge_s += t.s
 
     if pos is None:
         raise RuntimeError("empty plan")
-    t0 = time.perf_counter()
-    total = pos if neg is None else pos - neg
-    model = family.solve(total, params)
-    timings.merge_s += time.perf_counter() - t0
+    with obs.timed("analytics.combine") as t:
+        total = pos if neg is None else pos - neg
+    timings.merge_s += t.s
+    with obs.timed("analytics.solve") as t:
+        model = family.solve(total, params)
+    timings.merge_s += t.s
     return ExecResult(model=model, stats=total, plan=plan, timings=timings,
                       materialized_ids=new_ids)
 

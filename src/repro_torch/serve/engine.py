@@ -34,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cost import CostModel, serve_cost_model
 from repro_torch.core.descriptors import Range
 from repro_torch.core.optimizer import Plan, baseline_plan, shortest_plan
@@ -189,13 +190,13 @@ class PrefixCacheBuilder:
     # ------------------------------------------------------------------
     def plan_prefix(self, length: int, *, doc_id: str = DEFAULT_DOC,
                     stats: Optional[ServeStats] = None) -> Plan:
-        t0 = time.perf_counter()
-        plan = shortest_plan(
-            self.store.index(doc_id), Range(0, length), self.cost,
-            self.store.segment_bytes(doc_id), directed=True,
-        )
+        with obs.timed("serve.plan") as t:
+            plan = shortest_plan(
+                self.store.index(doc_id), Range(0, length), self.cost,
+                self.store.segment_bytes(doc_id), directed=True,
+            )
         if stats is not None:
-            stats.planner_s += time.perf_counter() - t0
+            stats.planner_s += t.s
         return plan
 
     def build_prefix(self, doc: np.ndarray, length: int, *,
@@ -253,31 +254,36 @@ class PrefixCacheBuilder:
         t0 = time.perf_counter()
         try:
             with ctx:
-                self.store.prefetch_ids(plan.models_used)
+                with obs.span("serve.assemble"):
+                    self.store.prefetch_ids(plan.models_used)
                 for st in steps:
                     if st.model_id is not None:
-                        seg = self.store.get(st.model_id, requester=requester)
-                        seg_caches = self._segment_caches(seg)
-                        if caches is None:
-                            # plan anchor at 0: adopt a copy of the segment,
-                            # grown to the request capacity (later steps
-                            # write into it in place, SSD state included;
-                            # the stored copy stays intact)
-                            caches = adopt_cache(seg_caches, cap)
-                        else:
-                            self._dispatch("insert", (cache_len(caches), seg.capacity))
-                            caches = insert_cache(caches, seg_caches, st.rng.lo)
+                        with obs.span("serve.assemble"):
+                            seg = self.store.get(st.model_id, requester=requester)
+                            seg_caches = self._segment_caches(seg)
+                            if caches is None:
+                                # plan anchor at 0: adopt a copy of the
+                                # segment, grown to the request capacity
+                                # (later steps write into it in place, SSD
+                                # state included; the stored copy stays
+                                # intact)
+                                caches = adopt_cache(seg_caches, cap)
+                            else:
+                                self._dispatch("insert", (cache_len(caches), seg.capacity))
+                                caches = insert_cache(caches, seg_caches, st.rng.lo)
                         stats.tokens_reused += st.rng.size
                     else:
-                        caches = self._fill_gap(doc, st.rng, caches, cap, extras,
-                                                stats=stats, sink=sink)
+                        with obs.span("serve.extend"):
+                            caches = self._fill_gap(doc, st.rng, caches, cap, extras,
+                                                    stats=stats, sink=sink)
         except BaseException:
             # the sync path's context manager releases its pins on any
             # failure; a failed dispatch must not leak the deferred pins
             self.abandon_build(pending)
             raise
         if caches is not None:
-            caches = pad_cache_to(caches, cap)
+            with obs.span("serve.assemble"):
+                caches = pad_cache_to(caches, cap)
         if not defer:
             _sync(self.device)
         stats.prefill_s += time.perf_counter() - t0
@@ -302,9 +308,10 @@ class PrefixCacheBuilder:
         if pending is None or pending.finalized:
             return
         pending.finalized = True
-        for rng, seg in pending.puts:
-            self.store.put(rng, seg, doc_id=pending.doc_id,
-                           created_by=pending.requester)
+        with obs.span("serve.store_put"):
+            for rng, seg in pending.puts:
+                self.store.put(rng, seg, doc_id=pending.doc_id,
+                               created_by=pending.requester)
         pending.puts = []
         self.store.unpin(pending.pin_token)
 
@@ -382,8 +389,9 @@ class PrefixCacheBuilder:
         if prefix_len < 2:
             t0 = time.perf_counter()
             self._dispatch("prefill", (prefix_len,))
-            logits, caches = self.model.prefill(
-                self.params, {"tokens": self._tokens(doc[None, :prefix_len]), **extras})
+            with obs.span("serve.extend"):
+                logits, caches = self.model.prefill(
+                    self.params, {"tokens": self._tokens(doc[None, :prefix_len]), **extras})
             if not defer:
                 _sync(self.device)
             stats.prefill_s += time.perf_counter() - t0
@@ -404,10 +412,11 @@ class PrefixCacheBuilder:
                 f"cache capacity {cur} < prefix {prefix_len}")
             t0 = time.perf_counter()
             self._dispatch("extend", (cur, 1))
-            logits, caches = self.model.prefill_extend(
-                self.params, caches,
-                self._tokens(doc[None, prefix_len - 1:prefix_len]),
-                self._scalar(prefix_len - 1))
+            with obs.span("serve.extend"):
+                logits, caches = self.model.prefill_extend(
+                    self.params, caches,
+                    self._tokens(doc[None, prefix_len - 1:prefix_len]),
+                    self._scalar(prefix_len - 1))
         except BaseException:
             if defer:       # a failed boundary extend must not leak pins
                 self.abandon_build(built[2])

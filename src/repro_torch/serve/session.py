@@ -49,6 +49,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.cost import CostModel, serve_cost_model
 from repro_torch.core.descriptors import Range
 from repro_torch.core.optimizer import Plan
@@ -386,6 +387,11 @@ class SessionManager:
         from a ``torch.Generator`` seeded with ``seed`` on the manager's
         device, as ``ServeEngine.generate`` does.
         """
+        with obs.span("serve.submit"):
+            return self._submit(sid, prefix_len, n_new, greedy=greedy, seed=seed)
+
+    def _submit(self, sid: int, prefix_len: int, n_new: int, *,
+                greedy: bool, seed: int) -> Plan:
         s = self.sessions[sid]
         if s.busy:
             raise RuntimeError(f"session {sid} still has {s.remaining} tokens pending")
@@ -399,7 +405,8 @@ class SessionManager:
             # last chance to write the previous request's generated KV back
             # before the session caches are replaced
             self._materialize_decode(s)
-        self.store.prefetch(s.doc_id, upto=prefix_len)
+        with obs.span("serve.assemble"):
+            self.store.prefetch(s.doc_id, upto=prefix_len)
         if self.async_prefill:
             logits, caches, plan, pending = self.builder.prefix_with_logits(
                 s.doc, prefix_len, doc_id=s.doc_id, extras=s.context, stats=s.stats,
@@ -518,9 +525,9 @@ class SessionManager:
         (a no-op when the poll already saw it done) and charge the wait to
         the build, not to the decode lanes."""
         t = s.ticket
-        t0 = time.perf_counter()
-        t.wait()
-        wait = time.perf_counter() - t0
+        with obs.timed("serve.join") as clock:
+            t.wait()
+        wait = clock.s
         t.join_wait_s = wait
         t.joined = True
         s.ticket = None
@@ -537,6 +544,10 @@ class SessionManager:
         Sessions whose build is still in flight are skipped unless nothing
         else can decode, in which case the oldest ticket is joined.
         """
+        with obs.span("serve.step"):
+            return self._step()
+
+    def _step(self) -> int:
         self._flush_tickets()
         busy = [s for s in self.sessions.values() if s.busy]
         if not busy:
@@ -549,8 +560,9 @@ class SessionManager:
                 self._join_ticket(s)
                 ready.append(s)
         in_flight = sum(1 for s in busy if s.ticket is not None)
-        for s in ready:
-            self._sample(s)
+        with obs.span("serve.sample"):
+            for s in ready:
+                self._sample(s)
         decode_set = [s for s in ready if s.remaining > 0]
         t0 = time.perf_counter()
         for group in self._plan_groups(decode_set):
@@ -605,6 +617,10 @@ class SessionManager:
         s.mat_pending = False
         if not self.decode_materialize or s.caches is None or not s.out_tokens:
             return
+        with obs.span("serve.writeback"):
+            self._write_back(s)
+
+    def _write_back(self, s: Session) -> None:
         start, end = s.req_prefix, s.pos
         ext_doc = np.concatenate(
             [s.doc[:start], np.asarray(s.out_tokens, np.int32)])
@@ -694,19 +710,23 @@ class SessionManager:
         sess = [self.sessions[sid] for sid in group]
         target = max(max(s.capacity, cache_len(s.caches)) for s in sess)
         cap = bucket_len(target, self.decode_bucket)
-        self._packs[group] = batch_caches(
-            [pad_cache_to(s.caches, cap) for s in sess])
+        with obs.span("serve.pack"):
+            self._packs[group] = batch_caches(
+                [pad_cache_to(s.caches, cap) for s in sess])
         self.sched.pack_rebuilds += 1
 
     def _flush_packs(self, groups: Optional[list] = None) -> None:
         """Hand batched caches back to their sessions (pre-regroup)."""
         targets = list(self._packs) if groups is None else list(groups)
-        for group in targets:
-            rows = split_caches(self._packs[group], len(group))
-            for sid, row in zip(group, rows):
-                if sid in self.sessions:
-                    self.sessions[sid].caches = row
-            del self._packs[group]
+        if not targets:
+            return
+        with obs.span("serve.pack"):
+            for group in targets:
+                rows = split_caches(self._packs[group], len(group))
+                for sid, row in zip(group, rows):
+                    if sid in self.sessions:
+                        self.sessions[sid].caches = row
+                del self._packs[group]
 
     def _decode_group(self, group: tuple[int, ...]) -> None:
         """One ``decode_step`` over a pack.  No ``row_caps``: the decode
@@ -720,11 +740,13 @@ class SessionManager:
         pos = torch.tensor([s.pos for s in sess], dtype=torch.int32,
                            device=self.device)
         pack_cap = cache_len(caches)
-        logits, caches = self.model.decode_step(self.params, caches, toks, pos)
+        with obs.span("serve.decode"):
+            logits, caches = self.model.decode_step(self.params, caches, toks, pos)
         self._packs[group] = caches
         # greedy rows need B ints on the host, not the (B, V) logits;
         # sampling rows keep their logits row on the device
-        greedy_toks = torch.argmax(logits, dim=-1).tolist()
+        with obs.span("serve.readback"):
+            greedy_toks = torch.argmax(logits, dim=-1).tolist()
         for i, s in enumerate(sess):
             s.logits = logits[i:i + 1]
             s.greedy_next = greedy_toks[i]
