@@ -118,8 +118,10 @@ printed) and runs:
      4096), two rounds of 16 greedy tokens (the second reads a segment
      another session made and the continuations that decode write-back
      forked), async prefill, merged packs of mixed capacity; the decode
-     kernel's launches must equal 24 x the decode calls, extend must
-     launch, the mean batch must exceed 1 and a cross-session hit occur;
+     kernel's launches must equal 24 x the decode calls (replays of the
+     decode step's CUDA graphs included; the graph and pack-pool counters
+     print), extend must launch, the mean batch must exceed 1 and a
+     cross-session hit occur;
      every stream is compared with ``ServeEngine.generate`` on the same
      (document, prefix, 16), and where one parts the single run's top-2
      logit gap there must be within ``REDUCED_BF16_LOGIT_ULPS`` bf16 ulps
@@ -3873,6 +3875,9 @@ def sessions_phase(base, dev) -> dict:
     print(f"  launches: {launches} (decode {launches['decode_attention']} = "
           f"{FULL_LAYERS} x {sc.decode_calls} decode calls); decode calls per (batch, "
           f"capacity): {dict(sorted(pack_shapes.items()))}")
+    print(f"  decode graphs: {sc.decode_replays} of {sc.decode_calls} decode calls replayed, "
+          f"{sc.decode_captures} captured; {sc.pack_reuses} of {sc.pack_rebuilds} packs built "
+          f"in a reused buffer")
     full_pack = (len(SESSION_ROUNDS[1]), session_pack_cap())
     check(pack_shapes.get(full_pack, 0) > 0,
           f"phase 9 never decoded the pack shape {full_pack} that phase 2 checks")

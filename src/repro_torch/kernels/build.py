@@ -24,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 KERNELS_DIR = Path(__file__).resolve().parent
 INCLUDE_DIR = KERNELS_DIR / "csrc"
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -31,6 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
+
+#: this thread's launches made while its stream captures a CUDA graph: the
+#: capture sets ``CAPTURED.launches`` to a dict, which each launch adds one
+#: to under its :class:`CudaKernel` (``models/graphs.py``)
+CAPTURED = threading.local()
 
 
 def sources() -> list[Path]:
@@ -99,8 +106,11 @@ def build_all(srcs=None) -> dict[str, str]:
 class CudaKernel:
     """One C entry point of one CUDA source, plus its launch counter.
 
-    ``launches`` counts the calls that launched the kernel on the card; the
-    wrapper that owns this object adds one per launch and nowhere else.
+    ``launches`` counts the kernel's launches that ran on the card.  A call
+    adds one, unless the current stream is capturing a CUDA graph: the launch
+    then runs only when the graph replays, so it is noted in
+    :data:`CAPTURED` instead, and each replay of the graph adds what its
+    capture noted.
     """
 
     def __init__(self, source: Path, symbol: str, argtypes: list) -> None:
@@ -126,4 +136,9 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.symbol} failed to launch: CUDA error {err}")
+        if torch.cuda.is_current_stream_capturing():
+            noted = getattr(CAPTURED, "launches", None)
+            if noted is not None:
+                noted[self] = noted.get(self, 0) + 1
+            return
         self.launches += 1

@@ -62,6 +62,7 @@ from . import moe as moe_mod
 from . import ssd as ssd_mod
 from .common import (CACHE_CONST_KEYS, CACHE_STATE_KEYS, ParamSpec, cache_leaf_key, dense,
                      rms_norm, spec_map, tree_leaves, tree_map_with_path, tree_unflatten)
+from .graphs import StepGraphs
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -348,6 +349,8 @@ class LM:
         self.device = torch.device(device)
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.param_dtype = DTYPES[cfg.param_dtype]
+        #: :meth:`decode_step`'s CUDA graphs
+        self.decode_graphs = StepGraphs()
 
     # -- params ----------------------------------------------------------
     def init(self, generator: torch.Generator, device=None) -> dict:
@@ -649,7 +652,21 @@ class LM:
         int32 on the tokens' device.  Attention runs the ragged
         flash-decode kernel, whose output is bit-invariant to the cache's
         padded capacity; MLA runs its dense absorbed decode (``repro``'s
-        route), which reduces over the whole padded capacity."""
+        route), which reduces over the whole padded capacity.
+
+        On a CUDA device, with plain tensors, no gradient and no sharding
+        rules, the step runs from a CUDA graph once its parameters, caches
+        and shapes recur (``models/graphs.py``); the logits returned are the
+        caller's own either way."""
+        if tokens.is_cuda:
+            leaves = tree_leaves(params) + tree_leaves(caches)
+            if StepGraphs.applies(leaves, tokens, pos):
+                step = functools.partial(self._decode, params, caches)
+                return self.decode_graphs.run(step, leaves, (tokens, pos)), caches
+        return self._decode(params, caches, tokens, pos), caches
+
+    def _decode(self, params, caches, tokens, pos):
+        """The decode step's operations: the logits (B, V); caches in place."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         for _, _, _, spec, p, (c0, c1), ctx_kv in self._layers(params, caches):
@@ -672,7 +689,7 @@ class LM:
                 x = self._cross(p, x, ctx_kv)
             x, _ = self._mlp(spec, p, x)
         hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return self.logits(params, hidden)[:, 0], caches
+        return self.logits(params, hidden)[:, 0]
 
 
 def _embed_rows(tokens, table, *, dtype, vocab: int):

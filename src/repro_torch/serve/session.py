@@ -17,8 +17,13 @@ stops every row at its own ``pos`` and its output is bit-invariant to the
 padded capacity, so a row's tokens do not depend on its pack.
 
 The port's decode writes K/V **in place**, so a pack always owns its
-storage (:func:`batch_caches` copies, a 1-row pack too), and the store
-only ever holds compact copies: no in-place write can reach store bytes.
+storage (a buffer of :class:`~repro_torch.serve.packs.PackPool`, a 1-row
+pack too), a dissolved pack hands every session a row of its own, and the
+store only ever holds compact copies: no in-place write can reach store
+bytes.  The pool keeps dissolved packs' buffers per (batch signature,
+rows, capacity), so a pack built again over the same key sits at the same
+addresses and the model replays the decode step's CUDA graph over it
+(``models/graphs.py``).
 
 Decode write-back: the tokens a request emits extend its document.  When
 the request drains, the KV decode wrote for them is stored under the
@@ -60,6 +65,7 @@ from .engine import (PendingBuild, PrefixCacheBuilder, ServeStats, device_extras
                      host_extras)
 from .kv_cache import (SEQ_KEYS, SegmentStore, _leaf_key, cache_len,
                        cache_nbytes, pad_cache_to, slice_cache)
+from .packs import PackPool
 
 
 def doc_key(doc_tokens: np.ndarray, extras: Optional[dict] = None) -> str:
@@ -81,9 +87,8 @@ def batch_caches(caches_list: list) -> Any:
     """Concatenate per-session caches ((L, 1, ...) leaves) along batch.
 
     The pack always owns its storage: ``torch.cat`` copies, one operand
-    included.  Decode writes K/V into the pack in place, and a session
-    cache may be a view of an earlier pack, so sharing storage with any
-    input would let a decode write land outside the pack.
+    included.  Decode writes K/V into a pack in place, so sharing storage
+    with any input would let a decode write land outside the pack.
     """
     return tree_map_with_path(lambda _, *xs: torch.cat(xs, dim=1),
                               caches_list[0], *caches_list[1:])
@@ -115,6 +120,13 @@ def batch_signature(caches) -> tuple:
 
     tree_map_with_path(f, caches)
     return tuple(sig)
+
+
+def _pack_key(caches, rows: int, cap: int) -> tuple:
+    """The pack pool's key of a pack of ``rows`` rows like ``caches`` at
+    capacity ``cap``; a cache without SEQ leaves (SSD state alone) has no
+    capacity, so its packs of one batch share a key whatever ``cap``."""
+    return (batch_signature(caches), rows, cap if cache_len(caches) else 0)
 
 
 @dataclass
@@ -183,6 +195,9 @@ class SchedulerStats:
     decode_calls: int = 0
     decode_rows: int = 0
     pack_rebuilds: int = 0
+    pack_reuses: int = 0        # ... built in a buffer a dissolved pack left
+    decode_replays: int = 0     # decode calls the model replayed from a graph
+    decode_captures: int = 0    # ... that captured the graph they replayed
     decode_segments: int = 0    # decode-KV segments admitted to the store
     decode_rejects: int = 0     # ... rejected by the cost-model admission
     # pipeline (async-prefill) counters
@@ -205,6 +220,16 @@ class SchedulerStats:
     @property
     def mean_batch(self) -> float:
         return self.decode_rows / self.decode_calls if self.decode_calls else 0.0
+
+    @property
+    def pack_reuse_share(self) -> float:
+        return self.pack_reuses / self.pack_rebuilds if self.pack_rebuilds else 0.0
+
+    @property
+    def decode_graph_hit_share(self) -> float:
+        """Decode calls replayed from a graph captured at an earlier call ÷
+        decode calls."""
+        return self.decode_replays / self.decode_calls if self.decode_calls else 0.0
 
     @property
     def decode_padded_frac(self) -> float:
@@ -249,6 +274,13 @@ _SINGLE_SHARD = {
     "max_transfers_per_shard_tick": 0,
     "sim_transfer_s": 0.0,
 }
+
+
+#: the keys ``report()`` adds after ``repro``'s: the pack pool's reuses and
+#: their share of pack builds, and the decode calls replayed from a CUDA
+#: graph, the calls that captured one, and the replays' share of the calls
+PORT_REPORT_KEYS = ("pack_reuses", "pack_reuse_share", "decode_graph_replays",
+                    "decode_graph_captures", "decode_graph_hit_share")
 
 
 class SessionManager:
@@ -339,6 +371,8 @@ class SessionManager:
         self._next_sid = 0
         # live decode packs: tuple(sids) -> batched caches (padded to a bucket)
         self._packs: dict[tuple[int, ...], Any] = {}
+        # buffers of dissolved packs; bounded at the first pack (_pack_bound)
+        self.packs: Optional[PackPool] = None
         # un-finalized async builds, FIFO in submit order
         self._tickets: list[PrefillTicket] = []
 
@@ -594,7 +628,7 @@ class SessionManager:
             self._flush_packs(idle_groups)
         else:
             for g in idle_groups:
-                del self._packs[g]
+                self._dissolve(g)
         for s in self.sessions.values():
             if not s.busy:
                 if s.mat_pending:
@@ -706,27 +740,52 @@ class SessionManager:
         return bucket_len(max(s.capacity, cache_len(s.caches)),
                           self.decode_bucket)
 
+    def _pack_bound(self) -> int:
+        """The pack pool's bytes: half of what the device has free (the
+        allocator's unused cache included; the host's available memory on
+        the CPU) once the store holds its whole budget."""
+        if self.device.type == "cuda":
+            free = (torch.cuda.mem_get_info(self.device)[0]
+                    + torch.cuda.memory_reserved(self.device)
+                    - torch.cuda.memory_allocated(self.device))
+        else:
+            free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        budget = self.store.byte_budget
+        room = 0 if budget is None else max(0, budget - self.store.nbytes())
+        return max(0, free - room) // 2
+
     def _build_pack(self, group: tuple[int, ...]) -> None:
         sess = [self.sessions[sid] for sid in group]
         target = max(max(s.capacity, cache_len(s.caches)) for s in sess)
         cap = bucket_len(target, self.decode_bucket)
         with obs.span("serve.pack"):
-            self._packs[group] = batch_caches(
-                [pad_cache_to(s.caches, cap) for s in sess])
+            if self.packs is None:
+                self.packs = PackPool(self._pack_bound())
+            rows = [s.caches for s in sess]
+            self._packs[group], reused = self.packs.take(
+                _pack_key(rows[0], len(rows), cap), rows, cap)
         self.sched.pack_rebuilds += 1
+        self.sched.pack_reuses += reused
+
+    def _dissolve(self, group: tuple[int, ...]) -> None:
+        """Drop a pack; its buffer goes back to the pool."""
+        pack = self._packs.pop(group)
+        self.packs.give(_pack_key(pack, len(group), cache_len(pack)), pack)
 
     def _flush_packs(self, groups: Optional[list] = None) -> None:
-        """Hand batched caches back to their sessions (pre-regroup)."""
+        """Hand batched caches back to their sessions (pre-regroup), each
+        row a copy of its own: the pack's buffer goes back to the pool."""
         targets = list(self._packs) if groups is None else list(groups)
         if not targets:
             return
         with obs.span("serve.pack"):
             for group in targets:
-                rows = split_caches(self._packs[group], len(group))
-                for sid, row in zip(group, rows):
+                pack = self._packs[group]
+                for i, sid in enumerate(group):
                     if sid in self.sessions:
-                        self.sessions[sid].caches = row
-                del self._packs[group]
+                        self.sessions[sid].caches = tree_map_with_path(
+                            lambda _, x, i=i: x[:, i:i + 1].clone(), pack)
+                self._dissolve(group)
 
     def _decode_group(self, group: tuple[int, ...]) -> None:
         """One ``decode_step`` over a pack.  No ``row_caps``: the decode
@@ -740,9 +799,14 @@ class SessionManager:
         pos = torch.tensor([s.pos for s in sess], dtype=torch.int32,
                            device=self.device)
         pack_cap = cache_len(caches)
+        graphs = getattr(self.model, "decode_graphs", None)
+        seen = (graphs.replays, graphs.captures) if graphs is not None else None
         with obs.span("serve.decode"):
             logits, caches = self.model.decode_step(self.params, caches, toks, pos)
         self._packs[group] = caches
+        if seen is not None:
+            self.sched.decode_replays += graphs.replays > seen[0]
+            self.sched.decode_captures += graphs.captures > seen[1]
         # greedy rows need B ints on the host, not the (B, V) logits;
         # sampling rows keep their logits row on the device
         with obs.span("serve.readback"):
@@ -845,6 +909,12 @@ class SessionManager:
             "fetched_segments": self.builder.fetched_segments,
             **(st.shard_report() if hasattr(st, "shard_report")
                else _SINGLE_SHARD),
+            # the port's own, after repro's keys (PORT_REPORT_KEYS)
+            "pack_reuses": sc.pack_reuses,
+            "pack_reuse_share": sc.pack_reuse_share,
+            "decode_graph_replays": sc.decode_replays,
+            "decode_graph_captures": sc.decode_captures,
+            "decode_graph_hit_share": sc.decode_graph_hit_share,
         }
 
 

@@ -10,10 +10,11 @@ store contents and snapshot manifest under eviction), ticket pins, forced
 joins, capacity-split and merged packs, and a finite idle report.
 
 Then the port against ``repro`` on one script: the same greedy streams,
-plans and segment ids, and ``report()`` with the same keys and the same
-values except the timing fields and ``decode_attn_flops``, which counts
-what each package's decode route reads (the port's kernel: whole splits
-of 128 positions per row).
+plans and segment ids, and ``report()`` with ``repro``'s keys, then the
+port's own (``PORT_REPORT_KEYS``), and ``repro``'s values except the
+timing fields and ``decode_attn_flops``, which counts what each
+package's decode route reads (the port's kernel: whole splits of 128
+positions per row).
 
 Last, storage: no stored leaf shares storage with a live decode pack or a
 session cache, and each owns exactly its own bytes, after decode
@@ -43,8 +44,8 @@ from repro_torch.models.lm import LM, params_from_jax  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.kv_cache import (SegmentStore, cache_len,  # noqa: E402
                                         cache_nbytes, slice_cache)
-from repro_torch.serve.session import (SessionManager, batch_caches,  # noqa: E402
-                                       doc_key, split_caches)
+from repro_torch.serve.session import (PORT_REPORT_KEYS, SessionManager,  # noqa: E402
+                                       batch_caches, doc_key, split_caches)
 
 
 @pytest.fixture(scope="module")
@@ -536,8 +537,8 @@ def test_streams_plans_and_segments_match_reference(reference_run):
 def test_report_matches_reference(reference_run):
     (_, jmgr), (_, tmgr) = reference_run
     jrep, trep = jmgr.report(), tmgr.report()
-    assert list(trep) == list(jrep)
-    differ = {k for k in trep if trep[k] != jrep[k]}
+    assert list(trep) == list(jrep) + list(PORT_REPORT_KEYS)
+    differ = {k for k in jrep if trep[k] != jrep[k]}
     assert differ <= set(TIMING_FIELDS) | {"decode_attn_flops"}, \
         {k: (trep[k], jrep[k]) for k in differ}
     assert trep["mean_batch"] > 1.0 and trep["rekeyed_segments"] > 0

@@ -14,7 +14,8 @@ per tick), and after the straggler, hedged fetches the local rebuild wins
 with the streams still equal.  Against ``repro`` (parameters from its
 ``LM.init`` through ``params_from_jax``, synchronous prefill on both
 sides): the same streams, plans and segment ids on every shard, and
-``report()`` with the same keys and values apart from the wall-clock
+``report()`` with ``repro``'s keys, then the port's own
+(``PORT_REPORT_KEYS``), and ``repro``'s values apart from the wall-clock
 fields and ``decode_attn_flops`` (each package counts what its decode
 route reads).  Reduced ``deepseek-67b`` and reduced ``deepseek-v2-236b``,
 whose latent cache (``c_kv``, ``k_rope``) is the first non-GQA cache on
@@ -42,7 +43,7 @@ from repro.serve.shard_store import ShardedSegmentStore as JaxSharded  # noqa: E
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.cost import serve_cost_model  # noqa: E402
 from repro_torch.models.lm import LM, params_from_jax  # noqa: E402
-from repro_torch.serve.session import SessionManager, doc_key  # noqa: E402
+from repro_torch.serve.session import PORT_REPORT_KEYS, SessionManager, doc_key  # noqa: E402
 from repro_torch.serve.shard_store import HashRing, ShardedSegmentStore  # noqa: E402
 
 #: report() fields that are wall-clock readings, and the decode route's
@@ -150,8 +151,8 @@ def test_sharded_sessions_match_reference(runs):
     for key in ("ref", "got", "ref2", "got2", "plans", "fetched", "segs"):
         assert port[key] == ref[key], (arch, key)
     prep, jrep = port["report"], ref["report"]
-    assert list(prep) == list(jrep)
-    differ = {k for k in prep if prep[k] != jrep[k]}
+    assert list(prep) == list(jrep) + list(PORT_REPORT_KEYS)
+    differ = {k for k in jrep if prep[k] != jrep[k]}
     assert differ <= set(VOLATILE), {k: (prep[k], jrep[k]) for k in differ}
     assert prep["remote_fetch_wire_bytes"] > 0 and prep["shards"] == 2
 
