@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from .base import ArchConfig, MLAConfig, MoEConfig, SSMConfig
+from .base import ArchConfig, MLAConfig, MoEConfig, RopeScaling, SSMConfig
 from .deepseek_67b import CONFIG as _deepseek_67b
 from .deepseek_v2_236b import CONFIG as _deepseek_v2_236b
 from .jamba_v01_52b import CONFIG as _jamba
@@ -93,5 +93,5 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)
 
 
-__all__ = ["ARCHS", "ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig",
+__all__ = ["ARCHS", "ArchConfig", "MLAConfig", "MoEConfig", "RopeScaling", "SSMConfig",
            "get_config", "list_archs", "reduced"]

@@ -21,7 +21,26 @@ class MoEConfig:
     router_aux_weight: float = 0.001
     first_dense_layers: int = 0   # leading dense layers (DeepSeek/Kimi style)
     every: int = 1                # MoE on layers where (idx % every == every-1)
-    capacity_factor: float = 1.25  # GShard-style drop capacity (smokes use 8+)
+    #: GShard-style drop capacity (smokes use 8+); None: dropless, every
+    #: expert's bucket holds all of its group's tokens
+    capacity_factor: Optional[float] = 1.25
+    # -- the fields below are the port's own; their defaults are the JAX
+    # package's router (a softmax top-k, gates renormalised to sum to one)
+    #: "greedy": top-k over all experts; "group_limited_greedy": DeepSeek-V2's
+    #: device-limited routing, the top ``topk_group`` of ``n_group`` groups
+    #: (each group's score its best expert's), then the top-k inside them
+    topk_method: str = "greedy"
+    n_group: int = 1
+    topk_group: int = 1
+    #: renormalise the k gates to sum to one; else scale the softmax scores
+    #: by ``routed_scaling_factor``
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    #: (first expert, count) of the routed experts this device holds, None
+    #: for all: the layer routes over every expert and computes the part of
+    #: the output its own experts give (expert parallelism without the
+    #: exchange)
+    experts_held: Optional[tuple[int, int]] = None
 
 
 @dataclass(frozen=True)
@@ -50,6 +69,23 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class RopeScaling:
+    """YaRN rope scaling as DeepSeek-V2 publishes it (``rope_scaling`` of its
+    ``config.json``, type "yarn"; arXiv:2309.00071): the rotary frequencies
+    past a ramp between the ``beta_fast`` and ``beta_slow`` rotations over
+    ``original_max_position_embeddings`` positions are divided by
+    ``factor``; cos/sin are scaled by mscale(factor, mscale) /
+    mscale(factor, mscale_all_dim), and the softmax scale by
+    mscale(factor, mscale_all_dim)² (``models/common.py``)."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                      # dense | moe | ssm | hybrid | encdec | vlm
@@ -65,6 +101,8 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    #: YaRN (MLA stacks only; the port's own field, None as in the JAX package)
+    rope_scaling: Optional[RopeScaling] = None
 
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None

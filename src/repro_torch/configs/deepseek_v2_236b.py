@@ -1,5 +1,17 @@
 """DeepSeek-V2 236B — MLA (kv_lora=512) + MoE 2 shared + 160 routed top-6
-[arXiv:2405.04434; hf]."""
+[arXiv:2405.04434; hf].
+
+This registry entry is a copy of the JAX package's and keeps its generic
+router for parity with it: a softmax top-6 over all 160 experts with the
+gates renormalised, GShard capacity 1.25 (drops), and plain RoPE.  The
+published model's router (``topk_method="group_limited_greedy"``,
+``n_group`` 8, ``topk_group`` 3, ``norm_topk_prob`` false,
+``routed_scaling_factor`` 16), dropless experts (``capacity_factor=None``),
+one device's share of the experts (``experts_held``) and YaRN
+(``ArchConfig.rope_scaling``) are selected by fields of ``MoEConfig`` and
+``ArchConfig`` that default off; the benchmark's configuration
+(``bench/configs/deepseek-v2-l30-ep8.json``) sets them.
+"""
 from .base import ArchConfig, MLAConfig, MoEConfig
 
 CONFIG = ArchConfig(

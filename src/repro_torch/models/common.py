@@ -225,13 +225,64 @@ def activation_fn(name: str):
     raise KeyError(name)  # swiglu handled structurally (gate ⊙ up)
 
 
-def rope_angles(positions, head_dim: int, theta: float):
-    """(…pos…) → cos/sin of shape (…pos…, head_dim/2), fp32."""
+def rope_angles(positions, head_dim: int, theta: float, scaling=None):
+    """(…pos…) → cos/sin of shape (…pos…, head_dim/2), fp32.  ``scaling``
+    (a ``configs.base.RopeScaling``) gives YaRN's frequencies and scales
+    cos/sin by its :func:`yarn_rope_gain`."""
     half = head_dim // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=positions.device) / half))
+    if scaling is None:
+        freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                              device=positions.device) / half))
+    else:
+        freqs = yarn_inv_freq(head_dim, theta, scaling, positions.device)
     ang = positions.float()[..., None] * freqs
-    return torch.cos(ang), torch.sin(ang)
+    if scaling is None:
+        return torch.cos(ang), torch.sin(ang)
+    gain = yarn_rope_gain(scaling)
+    return torch.cos(ang) * gain, torch.sin(ang) * gain
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1·mscale·ln(factor) + 1 (1 for a
+    factor ≤ 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_inv_freq(head_dim: int, theta: float, s, device=None):
+    """DeepSeek-V2's YaRN inverse frequencies (head_dim/2,), fp32, as its
+    published modelling code computes them: dimensions below the
+    ``beta_fast`` correction keep theta's, those past the ``beta_slow`` one
+    take theirs over ``s.factor``, with a linear ramp between
+    (``yarn_find_correction_range``, ``yarn_linear_ramp_mask``)."""
+    def corr(rot):
+        return (head_dim * math.log(s.original_max_position_embeddings / (rot * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(corr(s.beta_fast)), 0)
+    high = min(math.ceil(corr(s.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    base = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim)
+    extra, inter = 1.0 / base, 1.0 / (s.factor * base)
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    mask = 1.0 - ramp
+    return inter * (1 - mask) + extra * mask
+
+
+def yarn_rope_gain(s) -> float:
+    """The factor on YaRN's cos/sin: mscale(factor, mscale) /
+    mscale(factor, mscale_all_dim) (1 for DeepSeek-V2, whose two agree)."""
+    return yarn_mscale(s.factor, s.mscale) / yarn_mscale(s.factor, s.mscale_all_dim)
+
+
+def yarn_softmax_gain(s) -> float:
+    """The factor on the attention softmax's scale: mscale(factor,
+    mscale_all_dim)² where the config gives ``mscale_all_dim``, else 1 (and
+    1 without ``s``)."""
+    if s is None or not s.mscale_all_dim:
+        return 1.0
+    return yarn_mscale(s.factor, s.mscale_all_dim) ** 2
 
 
 def apply_rope(x, cos, sin):

