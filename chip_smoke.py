@@ -5,7 +5,7 @@
 
 from the root of a checkout, on a machine with a CUDA card of compute
 capability 9.0 and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``).  It builds the
-port's six CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
+port's seven CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one
 ``nvcc`` each, in parallel; each template instance's registers and spills
 printed) and runs:
 
@@ -40,6 +40,9 @@ printed) and runs:
      library call's time (a yardstick the port never calls), the attention
      kernels with their device time from ``torch.profiler``, and decode
      also at the serving path's decode step (batch 1, position 3072);
+     MLA's absorbed decode kernel against its plain version (normwise
+     1e-5) and timed at ``dsv2-docqa-8k``'s B 8 pack (capacity 8256) and
+     at B 1, beside its bound and the plain version's time;
   3. reduced ``deepseek-67b`` (fp32) in ``ServeEngine`` on the card vs the
      same on the CPU: identical plans and greedy tokens, with a plain store
      and with an int8 store on host and disk tiers (identical segment ids
@@ -272,8 +275,8 @@ Any failure exits non-zero.  The last two lines are the ``nvidia-smi``
 line and ``{"ok": true, "device": {...}}``; the line before them lists
 every kernel with its launches (on its own main path: batched serving,
 phase 9, for the attention kernels, the MLA main path, phase 10, for
-extend's MLA form, phase 11 for the two attention kernels' hd-192 forms,
-phase 13 (b) for their G-4 forms, phase 14 (a) for their hd-64 forms, the
+extend's MLA form and the absorbed decode kernel, phase 11 for the two
+attention kernels' hd-192 forms, phase 13 (b) for their G-4 forms, phase 14 (a) for their hd-64 forms, the
 residency phase and phase 12 for the dequant kernel, analytics for the
 statistics kernels) and times.
 """
@@ -336,8 +339,8 @@ def ptxas_summary(log: str) -> list[str]:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            m = re.search(r"\d+([a-z_]+kernel)(I(?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+E)?",
-                          mangled)
+            m = re.search(r"\d+([a-z_]+(?:kernel|_split|_combine))"
+                          r"(I(?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+E)?", mangled)
             name = mangled[:60] if m is None else m.group(1) + (
                 "" if m.group(2) is None else "<" + ", ".join(
                     {"f": "float", "13__nv_bfloat16": "bf16"}.get(t, n or
@@ -630,6 +633,57 @@ DECODE_SHAPES = {"B1": (1, 3088, [3072]), "B4": (4, 4096, [0, 1000, 2049, 4095])
 DECODE_SHAPES_WHISPER = {"B1": (1, 448, [431]), "B4": (4, 512, [0, 100, 257, 511]),
                          "caps": ((256, 2048, [0, 17, 128, 255]),
                                   (512, 8192, [0, 100, 300, 511]))}
+
+
+#: the absorbed MLA decode kernel's shapes: ``dsv2-docqa-8k``'s pack (B 8 at
+#: the top bucket's capacity, rows at 2048-8192 positions) and one row
+MLA_DECODE_SHAPES = {"B8": (8256, [2063, 3000, 4100, 5000, 6000, 7000, 8000, 8191]),
+                     "B1": (8256, [8191])}
+
+
+def mla_decode_phase(dev, timer) -> dict:
+    """MLA's absorbed decode kernel (``kernels/mla_decode``) at DeepSeek-V2's
+    widths (H 128, kv_lora 512, rope 64, v 128, bf16) against its fp32
+    plain version (normwise 1e-5: the same products summed in another
+    order), then timed at each of ``MLA_DECODE_SHAPES`` beside its bound
+    (the latents over the valid positions and W_uv once) and the plain
+    version; no single PyTorch call computes it.  Returns the B 8 row."""
+    from repro_torch.kernels.mla_decode.ops import mla_decode_attention
+    from repro_torch.kernels.mla_decode.ref import mla_decode_plain
+
+    h, l, r, v, dtype = 128, 512, 64, 128, torch.bfloat16
+    scale = (128 + r) ** -0.5
+    w_uv = (randn((l, h, v), torch.float32, dev, 15) * l ** -0.5).to(dtype)
+    rows = {}
+    for shape, (cap, pos) in MLA_DECODE_SHAPES.items():
+        b = len(pos)
+        q_lat, q_rope = randn((b, h, l), dtype, dev, 11), randn((b, h, r), dtype, dev, 12)
+        ckv, krope = randn((b, cap, l), dtype, dev, 13), randn((b, cap, r), dtype, dev, 14)
+        pt = torch.tensor(pos, dtype=torch.int32, device=dev)
+        args = (q_lat, q_rope, ckv, krope, w_uv, pt)
+        got = mla_decode_attention(*args, scale=scale)
+        want = mla_decode_plain(*args, scale=scale)
+        err = normwise(got, want)
+        check(err <= 1e-5, f"mla_decode {shape}: normwise error {err} against the plain version")
+        split = call_split(timer, lambda: mla_decode_attention(*args, scale=scale))
+        check(split["kernels"] == 2, f"mla_decode {shape}: {split['kernels']} device "
+                                     f"activities a call, want its two kernels")
+        parts = {k: device_ms(lambda: mla_decode_attention(*args, scale=scale), k)
+                 for k in ("mla_decode_split", "mla_decode_combine")}
+        plain_ms = timer.ms(lambda: mla_decode_plain(*args, scale=scale))
+        keys = sum(p + 1 for p in pos)
+        flops = 2.0 * h * (2 * l + r) * keys + 2.0 * b * h * l * v
+        nbytes = 2 * ((keys + b * h) * (l + r) + l * h * v) + 4 * b * h * v + 4 * b
+        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        rows[shape] = {"name": "mla_decode", "ms": split["call"], "plain_ms": plain_ms,
+                       "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": float((got - want).abs().max()),
+                       "shape": f"B{b} H{h} kv_lora{l} rope{r} v{v} cap{cap} pos{pos} bf16"}
+        print(f"  mla_decode [{rows[shape]['shape']}]: {split_line(split)} (split "
+              f"{parts['mla_decode_split']:.4f}, combine {parts['mla_decode_combine']:.4f}); "
+              f"bound {bound_ms:.6f} ms ({bound_by}); plain {plain_ms:.4f} ms; normwise err "
+              f"{err:.2e}; library none")
+    return rows["B8"]
 
 
 def decode_phase(dev, timer, *, g: int = 8, hd: int = 128, kv: int = 8,
@@ -2145,6 +2199,7 @@ def mla_main_path(dev) -> dict:
     through ``ServeEngine`` (:func:`serve_full_width`); returns the extend
     kernel's launches (the MLA form's main path)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.mla_decode import kernel as mk
 
     base = get_config("deepseek-v2-236b")
     cfg = dataclasses.replace(base, n_layers=MLA_LAYERS)
@@ -2155,14 +2210,17 @@ def mla_main_path(dev) -> dict:
           f"{moe.top_k} d_ff {moe.d_ff_expert} + {moe.n_shared} shared, dense d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}; n_layers cut "
           f"{base.n_layers} -> {cfg.n_layers} to fit one 80 GB card")
+    mk.KERNEL.launches = 0
     eng, counts, layers, _ = serve_full_width(cfg, dev)
-    launches, calls = counts["extend"], counts["extend_calls"]
-    print(f"  extend launches {launches} = {layers} MLA layers x {calls} "
-          f"extend calls: {launches == layers * calls}")
-    check(calls > 0 and launches == layers * calls,
-          f"MLA extend launches {launches} != {layers} x {calls} extend calls")
+    counts["mla_decode"] = mk.KERNEL.launches
+    for name, kind in (("extend", "extend"), ("mla_decode", "decode")):
+        launches, calls = counts[name], counts[f"{kind}_calls"]
+        print(f"  {name} launches {launches} = {layers} MLA layers x {calls} "
+              f"{kind} calls: {launches == layers * calls}")
+        check(calls > 0 and launches == layers * calls,
+              f"MLA {name} launches {launches} != {layers} x {calls} {kind} calls")
     mla_where_time_goes(eng, dev)
-    return {"extend_attention_mla": launches}
+    return {"extend_attention_mla": counts["extend"], "mla_decode": counts["mla_decode"]}
 
 
 def nemotron_main_path(dev) -> dict:
@@ -4437,7 +4495,7 @@ def main() -> int:
                          name="extend_attention_hd192"),
             extend_phase(dev, timer, g=4, hd=128, shapes=EXTEND_SHAPES_GRID,
                          name="extend_attention_g4"),
-            decode_phase(dev, timer),
+            decode_phase(dev, timer), mla_decode_phase(dev, timer),
             decode_phase(dev, timer, g=12, hd=192, name="decode_attention_hd192", pack=False),
             decode_phase(dev, timer, g=4, hd=128, name="decode_attention_g4", pack=False),
             extend_phase(dev, timer, g=1, hd=64, kv=20, cap=512, small=320, timed=(64, 448),
@@ -4577,6 +4635,8 @@ def main() -> int:
         "decode_attention_hd64": ("src/repro_torch/kernels/decode_attention/csrc/"
                                   "decode_attention.cu",
                                   "src/repro/kernels/decode_attention/kernel.py:103"),
+        "mla_decode": ("src/repro_torch/kernels/mla_decode/csrc/mla_decode.cu",
+                       "none (src/repro/models/mla.py::mla_decode is XLA)"),
         "quant_kv": ("src/repro_torch/kernels/quant_kv/csrc/quant_kv.cu",
                      "src/repro/kernels/quant_kv/kernel.py:50"),
         "linreg_stats": ("src/repro_torch/kernels/linreg_stats/csrc/linreg_stats.cu",

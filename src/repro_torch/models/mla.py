@@ -11,10 +11,13 @@ plus a decoupled RoPE key, so the serving cache is the latent stream
   at ``start``, K/V are expanded from the whole padded latent, and the
   queries attend through the extend kernel in its MLA form
   (``kernels/extend_attention/ops.py::extend_attention_mla``);
-* decode (:func:`mla_decode`): the **absorbed** formulation, dense plain
-  PyTorch as in ``repro`` (no kernel): query projections fold through
-  ``w_uk`` / ``w_uv`` so attention runs in latent space; the latent is
-  written in place at each row's ``pos``.
+* decode (:func:`mla_decode`): the **absorbed** formulation: query
+  projections fold through ``w_uk`` / ``w_uv`` so attention runs in latent
+  space; the latent is written in place at each row's ``pos``, and the
+  scores, softmax, probabilities times latents and the product with
+  ``w_uv`` go through the absorbed decode kernel
+  (``kernels/mla_decode/ops.py::mla_decode_attention``; on the CPU its
+  plain version, ``repro``'s dense arithmetic in fp32).
 
 ``norm_eps`` is the q and kv latents' RMSNorm epsilon (the model's, as
 DeepSeek-V2 publishes it; ``repro``'s 1e-5 by default).
@@ -39,10 +42,11 @@ import torch
 from repro_torch import obs
 from repro_torch.configs.base import MLAConfig
 from repro_torch.kernels.extend_attention import ops as extend_ops
+from repro_torch.kernels.mla_decode import ops as mla_decode_ops
 
 from repro_torch.distributed.sharding import KEEP, local_region
 
-from .attention import (NEG_INF, blocked_attention, seq_offset, seq_parallel_write, seq_update,
+from .attention import (blocked_attention, seq_offset, seq_parallel_write, seq_update,
                         softmax_combine)
 from .common import (apply_rope, dense, proj_heads, proj_out, rms_norm, rope_angles,
                      yarn_softmax_gain)
@@ -155,20 +159,13 @@ def mla_decode(p: MLAParams, m: MLAConfig, x, cache_ckv, cache_krope, pos, *,
 def _decode_plain(q_nope, q_rope, c_new, kr_new, cache_ckv, cache_krope, pos, w_uk, w_uv, *,
                   scale: float):
     b = q_nope.shape[0]
-    t = cache_ckv.shape[1]
     rows = torch.arange(b, device=cache_ckv.device)
     cache_ckv[rows, pos.long()] = c_new[:, 0].to(cache_ckv.dtype)
     cache_krope[rows, pos.long()] = kr_new[:, 0].to(cache_krope.dtype)
     # absorb: q' = q_nope @ W_uk  → latent-space query (B,H,kv_lora)
     q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], w_uk)
-    sc = torch.einsum("bhl,btl->bht", q_lat.float(), cache_ckv.float())
-    sc = sc + torch.einsum("bhr,btr->bht", q_rope[:, 0].float(), cache_krope.float())
-    sc = sc * scale
-    valid = torch.arange(t, device=sc.device)[None] <= pos[:, None]
-    sc = torch.where(valid[:, None, :], sc, NEG_INF)
-    prob = torch.softmax(sc, dim=-1)
-    o_lat = torch.einsum("bht,btl->bhl", prob, cache_ckv.float())
-    return torch.einsum("bhl,lhv->bhv", o_lat, w_uv.float())
+    return mla_decode_ops.mla_decode_attention(q_lat, q_rope[:, 0], cache_ckv, cache_krope,
+                                               w_uv, pos, scale=scale)
 
 
 def _decode_sharded(q_nope, q_rope, c_new, kr_new, cache_ckv, cache_krope, pos, w_uk, w_uv, *,

@@ -292,8 +292,9 @@ class SessionManager:
 
     #: the decode route: ``LM.decode_step`` through the decode kernel, which
     #: stops every row at its own ``pos`` (the TPU's route in ``repro``);
-    #: "dense" for a stack of MLA layers, whose absorbed decode reads the
-    #: pack's whole padded capacity
+    #: "dense" for a stack of MLA layers on the CPU, whose absorbed decode
+    #: reads the pack's whole padded capacity (on a CUDA device the absorbed
+    #: decode kernel stops every row at its own ``pos``)
     decode_mode = "kernel"
 
     def __init__(self, model, params, *,
@@ -359,7 +360,8 @@ class SessionManager:
         self._n_attn_layers, self._n_mla_layers = (sum(
             n * sum(1 for spec in period if spec.mixer == mixer)
             for period, n in model.segments) for mixer in ("attn", "mla"))
-        if self._n_mla_layers and not self._n_attn_layers:
+        self._mla_kernel = torch.device(self.device).type == "cuda"
+        if self._n_mla_layers and not self._n_attn_layers and not self._mla_kernel:
             self.decode_mode = "dense"
         # per-request counters live on each Session (folded into
         # _closed_stats on close); this object carries the batched decode
@@ -830,8 +832,12 @@ class SessionManager:
         reads each row's positions in whole splits of ``kernel.SPLIT``, up
         to the pack's capacity.  An MLA layer's absorbed decode scores the
         latent and the rope key and sums the latent (2·(2·kv_lora + rope)
-        FLOPs a head) at every position of the padded capacity."""
+        FLOPs a head) at each position it reads: on a CUDA device the
+        absorbed decode kernel reads each row's positions in whole splits of
+        its own ``SPLIT``, on the CPU the plain version every position of
+        the padded capacity."""
         from repro_torch.kernels.decode_attention.kernel import SPLIT
+        from repro_torch.kernels.mla_decode.ops import positions_read
 
         cfg = self.model.cfg
         per_tok = 4.0 * cfg.n_heads * cfg.head_dim * self._n_attn_layers
@@ -840,7 +846,7 @@ class SessionManager:
         if self._n_mla_layers:
             m = cfg.mla
             flops += (2.0 * cfg.n_heads * (2 * m.kv_lora_rank + m.qk_rope_head_dim)
-                      * self._n_mla_layers * cap * len(live))
+                      * self._n_mla_layers * positions_read(live, cap, kernel=self._mla_kernel))
         return flops
 
     # -- reporting ---------------------------------------------------------

@@ -15,7 +15,8 @@ greedy tokens must be bitwise equal, for GQA attention (``deepseek-67b``),
 MLA with MoE (``deepseek-v2-236b``, with the JAX package's router and with
 DeepSeek-V2's published one: group-limited, unnormalised scaled gates,
 dropless, a held share of the experts, YaRN) and SSD (``mamba2-130m``); a kernel
-hook and ``KERNEL.launches`` must read the same calls and counts both ways;
+hook and ``KERNEL.launches`` must read the same calls and counts both ways
+(for MLA, one absorbed decode kernel launch a layer a decode call);
 a capture must count nothing.
 """
 import dataclasses
@@ -32,6 +33,7 @@ from repro_torch.kernels.common import WORK  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
 from repro_torch.kernels.extend_attention import kernel as extend_kernel  # noqa: E402
+from repro_torch.kernels.mla_decode import kernel as mla_kernel  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.serve.kv_cache import pad_cache_to  # noqa: E402
 from repro_torch.serve.session import SessionManager  # noqa: E402
@@ -105,13 +107,14 @@ class _Log:
 
 def _serve(model, params, docs, *, eager: bool):
     """The script through a fresh manager; (tokens, batches, hook record,
-    launches of the two attention kernels, the manager)."""
+    launches of the three attention kernels, the manager)."""
     mgr = SessionManager(model, params, chunk_tokens=32, decode_bucket=32, max_batch=8,
                          async_prefill=True)
     if eager:
         model.decode_step = lambda p, c, t, s: (model._decode(p, c, t, s), c)
     log = _Log()
-    before = (decode_kernel.KERNEL.launches, extend_kernel.KERNEL.launches)
+    kernels = (decode_kernel.KERNEL, extend_kernel.KERNEL, mla_kernel.KERNEL)
+    before = [k.launches for k in kernels]
     WORK.counter = log
     try:
         out, batches = regroup_script(mgr, docs)
@@ -119,8 +122,7 @@ def _serve(model, params, docs, *, eager: bool):
         WORK.counter = None
         model.__dict__.pop("decode_step", None)
     torch.cuda.synchronize()
-    launches = (decode_kernel.KERNEL.launches - before[0],
-                extend_kernel.KERNEL.launches - before[1])
+    launches = tuple(k.launches - n for k, n in zip(kernels, before))
     return out, batches, log.resolved(), launches, mgr
 
 
@@ -143,10 +145,13 @@ def test_replayed_steps_stream_as_eager_steps(hopper, arch):
     assert sc.pack_reuses > 0
     rep = mgr.report()
     assert rep["decode_graph_hit_share"] == replays / len(batches)
+    layers = model.cfg.n_layers
     if arch == "deepseek-67b":
-        layers = model.cfg.n_layers
         assert got_launches[0] == layers * len(batches)
         assert [e[0] for e in got_log].count("decode_attention") == layers * len(batches)
+    if model.cfg.mla is not None:      # the absorbed decode kernel inside the graphs
+        assert got_launches[2] == layers * len(batches)
+        assert [e[0] for e in got_log].count("mla_decode") == layers * len(batches)
 
 
 def test_a_capture_counts_nothing(hopper):

@@ -53,6 +53,8 @@ from repro_torch.kernels.linreg_stats import ops as lin  # noqa: E402
 from repro_torch.kernels.linreg_stats.ref import linreg_stats_ref, zt_z_ref  # noqa: E402
 from repro_torch.kernels.logreg_sgd import ops as lg  # noqa: E402
 from repro_torch.kernels.logreg_sgd.ref import sgd_segment_ref  # noqa: E402
+from repro_torch.kernels.mla_decode import ops as mla  # noqa: E402
+from repro_torch.kernels.mla_decode.ref import mla_decode_plain  # noqa: E402
 from repro_torch.kernels.nb_stats import ops as nb  # noqa: E402
 from repro_torch.kernels.nb_stats.ref import grouped_stats_ref, nb_stats_ref  # noqa: E402
 from repro_torch.kernels.quant_kv import ops as qk  # noqa: E402
@@ -229,6 +231,18 @@ def _extend_case(b, nb_, t, kv, g, hd, hdv):
             analyze(ext.extend_attention, q, k, v, t_real=t - 7))
 
 
+def _mla_decode_case(b, t, h, l, r, v, pmax):
+    gen = _gen(t)
+    q_lat, q_rope = torch.randn(b, h, l, generator=gen), torch.randn(b, h, r, generator=gen)
+    ckv, krope = torch.randn(b, t, l, generator=gen), torch.randn(b, t, r, generator=gen)
+    w_uv = torch.randn(l, h, v, generator=gen)
+    pos = torch.tensor([pmax] + [1] * (b - 1), dtype=torch.int32)
+    args = (q_lat, q_rope, ckv, krope, w_uv)
+    return (flop_counter(mla_decode_plain, *args, pos, scale=0.1),
+            mla.mla_decode_work(*args, pos=pos, scale=0.1),
+            analyze(mla.mla_decode_attention, *args, pos, scale=0.1))
+
+
 def _quant_case(g, rows, cols):
     gen = _gen(rows)
     q = torch.randint(-127, 128, (g, rows, cols), dtype=torch.int8, generator=gen)
@@ -272,6 +286,7 @@ def _logreg_case(n, d):
 KERNEL_CASES = {
     "decode_attention": (_decode_case, [(2, 600, 2, 3, 16, 300), (3, 256, 1, 4, 32, 17)]),
     "extend_attention": (_extend_case, [(2, 8, 64, 2, 2, 16, 16), (1, 16, 96, 1, 4, 24, 16)]),
+    "mla_decode": (_mla_decode_case, [(2, 40, 4, 16, 8, 16, 30), (3, 64, 8, 32, 16, 8, 5)]),
     "quant_kv": (_quant_case, [(3, 16, 8), (2, 32, 64)]),
     "linreg_stats": (_linreg_case, [(1000, 7), (4096, 10)]),
     "nb_stats": (_nb_case, [(1000, 7), (4096, 10)]),
