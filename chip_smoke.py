@@ -52,8 +52,9 @@ printed) and runs:
      sessions and three rounds under a byte budget: the card's greedy
      streams, plans and segment ids equal the CPU's, merged packs stream
      as capacity-split ones, async prefill gives sync prefill's sampled
-     streams and store (payloads bitwise), and a deferred build's dispatch
-     makes no synchronising call (``torch.cuda.set_sync_debug_mode``);
+     streams and store (payloads bitwise), and a build's dispatch
+     (``dispatch_prefix``) makes no synchronising call
+     (``torch.cuda.set_sync_debug_mode``);
      then ``SessionManager`` over a 2-shard ``ShardedSegmentStore`` (int8
      wire, ``scripts/sharded_smoke.py``'s traffic: four 160-token documents
      two per shard, three rounds under a per-shard budget of half the
@@ -1700,8 +1701,8 @@ def reduced_context_isolation(dev, cfg) -> None:
 
 
 def deferred_build_waits_for_nothing(dev) -> None:
-    """``prefix_with_logits(defer=True)``, cold and over stored segments,
-    under ``torch.cuda.set_sync_debug_mode``: the dispatch phase of an async
+    """``PrefixCacheBuilder.dispatch_prefix``, cold and over stored
+    segments, under ``torch.cuda.set_sync_debug_mode``: the dispatch of a
     build must not wait on the device (no synchronising call)."""
     import warnings
 
@@ -1724,8 +1725,8 @@ def deferred_build_waits_for_nothing(dev) -> None:
         torch.cuda.set_sync_debug_mode("warn")
         try:
             t0 = time.perf_counter()
-            cold = b.prefix_with_logits(doc, 290, doc_id="cold", capacity=300, defer=True)
-            warm = b.prefix_with_logits(doc, 450, doc_id=doc_id, capacity=460, defer=True)
+            cold = b.dispatch_prefix(doc, 290, doc_id="cold", capacity=300)
+            warm = b.dispatch_prefix(doc, 450, doc_id=doc_id, capacity=460)
             dispatch = time.perf_counter() - t0
         finally:
             torch.cuda.set_sync_debug_mode(0)
@@ -1738,11 +1739,11 @@ def deferred_build_waits_for_nothing(dev) -> None:
     wait = time.perf_counter() - t0
     for built in (cold, warm):
         b.finalize_build(built[3])
-    print(f"  deferred builds (cold 290, warm 450 over {len(warm[2].models_used)} stored "
+    print(f"  dispatched builds (cold 290, warm 450 over {len(warm[2].models_used)} stored "
           f"segments): dispatch {dispatch * 1e3:.1f} ms, then {wait * 1e3:.1f} ms until the "
           f"card finished; synchronising calls in the dispatch: {len(syncs)} {syncs}")
-    check(not syncs, f"the deferred build synchronised: {syncs}")
-    check(warm[2].models_used and b.store._pins == {}, "deferred builds left pins")
+    check(not syncs, f"the build's dispatch synchronised: {syncs}")
+    check(warm[2].models_used and b.store._pins == {}, "dispatched builds left pins")
 
 
 def balanced_docs(rng, vocab: int, doc_len: int, n_docs: int, n_shards: int) -> list:

@@ -20,9 +20,8 @@ scale under the other's index too.  The dequant side goes through the
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any
 
 import torch
 
@@ -35,11 +34,8 @@ from repro_torch.models.common import CACHE_SEQ_KEYS, cache_leaf_key
 PRECISIONS = ("auto", "fp32", "int8")
 
 
-def resolve_precision(precision: Optional[str]) -> str:
-    """Constructor-time resolution: explicit kwarg wins, then the
-    ``REPRO_SEGMENT_PRECISION`` store setting, then ``"auto"``."""
-    if precision is None:
-        precision = os.environ.get("REPRO_SEGMENT_PRECISION", "auto")
+def resolve_precision(precision: str = "auto") -> str:
+    """A store's precision setting, validated (default ``"auto"``)."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown segment precision {precision!r}; "
                          f"expected one of {PRECISIONS}")

@@ -374,7 +374,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-decode-materialize", action="store_true",
                     help="multi-session only: no decode write-back")
     ap.add_argument("--async-prefill", dest="async_prefill",
-                    action="store_true", default=None,
+                    action="store_true", default=True,
                     help="multi-session only: pipelined prefix builds")
     ap.add_argument("--sync-prefill", dest="async_prefill",
                     action="store_false",
@@ -403,10 +403,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="simulated cross-shard wire bandwidth, bytes/s")
     ap.add_argument("--shard-rtt", type=float, default=1e-3,
                     help="simulated cross-shard round trip, s")
-    ap.add_argument("--hedge-deadline", type=float, default=None,
+    ap.add_argument("--hedge-deadline", type=float, default=0.05,
                     help="estimated fetch seconds past which a fetch races "
-                         "a local rebuild (default REPRO_HEDGE_DEADLINE, "
-                         "then 0.05)")
+                         "a local rebuild")
     ap.add_argument("--background-saves", dest="background_saves",
                     action="store_true", default=True)
     ap.add_argument("--sync-saves", dest="background_saves",

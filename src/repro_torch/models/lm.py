@@ -658,8 +658,10 @@ class LM:
         """One token for every sequence, in place.  tokens (B,1); pos (B,)
         int32 on the tokens' device.  Attention runs the ragged
         flash-decode kernel, whose output is bit-invariant to the cache's
-        padded capacity; MLA runs its dense absorbed decode (``repro``'s
-        route), which reduces over the whole padded capacity.
+        padded capacity.  MLA runs its absorbed decode: on a CUDA device
+        the absorbed decode kernel stops each row at its own ``pos``; the
+        plain version on the CPU (``repro``'s route) reduces over the whole
+        padded capacity.
 
         On a CUDA device, with plain tensors, no gradient and no sharding
         rules, the step runs from a CUDA graph once its parameters, caches

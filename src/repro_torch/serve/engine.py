@@ -10,10 +10,12 @@ in place of chunk models).
 Two front ends drive a :class:`PrefixCacheBuilder`, which owns the model
 entry points: :class:`ServeEngine` (one session over one document) and
 :class:`repro_torch.serve.session.SessionManager` (N sessions over a
-shared store, batched decode).  The builder's deferred path
-(``defer=True``) dispatches a build without waiting for the device and
-records its store insertions on a :class:`PendingBuild`, landed later by
-:meth:`PrefixCacheBuilder.finalize_build`.  Reused int8 segments come
+shared store, batched decode).  The builder has one build path: it
+dispatches a build without waiting for the device and records its store
+insertions on a :class:`PendingBuild`, landed by
+:meth:`PrefixCacheBuilder.finalize_build` (the manager's async tickets)
+or at once by :meth:`PrefixCacheBuilder.finish`, which also waits for the
+device (``build_prefix``, ``prefix_with_logits``).  Reused int8 segments come
 back to model precision through the ``quant_kv`` kernel
 (:meth:`PrefixCacheBuilder._segment_caches`).
 
@@ -26,7 +28,6 @@ handed to every build.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -73,16 +74,16 @@ class ServeStats:
 
 @dataclass
 class PendingBuild:
-    """Deferred store side effects of one dispatched prefix build.
+    """Store side effects of one dispatched prefix build.
 
-    ``build_prefix(..., defer=True)`` launches every gap's device work but
-    records the chunk segments here instead of inserting them, and pins
-    the plan's reuse segments under ``pin_token`` so eviction cannot
-    reclaim what the queued work still reads.
-    :meth:`PrefixCacheBuilder.finalize_build` lands the insertions in the
-    order the synchronous path would have and releases the pins.  The
-    recorded trees are copies whose values the device writes in stream
-    order, so landing them never waits on the device.
+    A dispatch (:meth:`PrefixCacheBuilder.dispatch_prefix`) launches every
+    gap's device work, records the chunk segments here in document order,
+    and pins the plan's reuse segments under ``pin_token`` so eviction
+    cannot reclaim what the queued work still reads.
+    :meth:`PrefixCacheBuilder.finalize_build` inserts the recorded
+    segments and releases the pins.  The recorded trees are copies whose
+    values the device writes in stream order, so landing them never waits
+    on the device.
     """
     doc_id: str
     requester: Optional[int]
@@ -179,7 +180,7 @@ class PrefixCacheBuilder:
         t = torch.as_tensor(np.asarray(toks, np.int64))
         if self.device.type == "cuda":
             # staged through pinned memory, so the copy is queued on the
-            # stream instead of waited for (the deferred path never blocks)
+            # stream instead of waited for (a dispatch never blocks)
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
@@ -205,28 +206,36 @@ class PrefixCacheBuilder:
                      stats: Optional[ServeStats] = None,
                      materialize: bool = True,
                      requester: Optional[int] = None,
-                     capacity: Optional[int] = None,
-                     defer: bool = False):
+                     capacity: Optional[int] = None):
         """Assemble the KV cache for document[:length] via the cheapest plan.
 
         Returns (caches, plan) with the caches' sequence axis padded to
-        ``bucket_len(max(length, capacity), seq_bucket)``.  Gaps are filled
-        through ``prefill_extend`` / ``prefill_extend_many`` at this
-        capacity; each chunk is materialized for future requests.
-        Segments the plan references are pinned for the duration so chunk
-        puts can never evict them mid-execution.  ``extras`` (device
-        tensors, :func:`device_extras`) join the batch of a cold prefill.
-
-        ``defer=True`` is the dispatch phase of an async build: the device
-        work is launched and not waited for (``prefill_s`` counts dispatch
-        time only), chunk materializations are recorded on the returned
-        :class:`PendingBuild` instead of stored, and the plan's reuse
-        segments stay pinned under its ``pin_token`` until
-        :meth:`finalize_build`, which must run before any *other* store
-        insertion.  Returns ``(caches, plan, pending)``.
+        ``bucket_len(max(length, capacity), seq_bucket)``, the build landed
+        and complete on the device (:meth:`_dispatch_build`, then
+        :meth:`finish`).  ``extras`` (device tensors, :func:`device_extras`)
+        join the batch of a cold prefill.
         """
         stats = stats if stats is not None else ServeStats()
-        extras = extras or {}
+        caches, plan, pending = self._dispatch_build(
+            doc, length, doc_id=doc_id, extras=extras or {}, stats=stats,
+            materialize=materialize, requester=requester, capacity=capacity)
+        self.finish(pending, stats)
+        return caches, plan
+
+    def _dispatch_build(self, doc, length: int, *, doc_id: str, extras: dict,
+                        stats: ServeStats, materialize: bool,
+                        requester: Optional[int], capacity: Optional[int]):
+        """Launch the build of document[:length] without waiting for the
+        device (``prefill_s`` counts dispatch time only).
+
+        Gaps are filled through ``prefill_extend`` /
+        ``prefill_extend_many`` at the request's capacity; each chunk's
+        segment is recorded on the returned :class:`PendingBuild` (none
+        when ``materialize`` is False), and the plan's reuse segments stay
+        pinned under its ``pin_token`` until :meth:`finalize_build`, which
+        must run before any *other* store insertion.  Returns
+        ``(caches, plan, pending)``.
+        """
         plan = self.plan_prefix(length, doc_id=doc_id, stats=stats)
         steps = sorted(plan.steps, key=lambda s: s.rng.lo)  # DAG path is ordered
         cap = bucket_len(max(length, capacity or 0), self.seq_bucket)
@@ -236,76 +245,68 @@ class PrefixCacheBuilder:
             if st.model_id is not None:
                 end = st.rng.lo + self.store.capacity(st.model_id)
                 cap = max(cap, bucket_len(end, self.seq_bucket))
-        pending = PendingBuild(doc_id=doc_id, requester=requester) \
-            if defer else None
-        if not materialize:
-            sink = None
-        elif defer:
-            sink = lambda rng, seg: pending.puts.append((rng, seg))  # noqa: E731
-        else:
-            sink = lambda rng, seg: self.store.put(  # noqa: E731
-                rng, seg, doc_id=doc_id, created_by=requester)
-        if defer:
-            pending.pin_token = self.store.pin(plan.models_used)
-            ctx = contextlib.nullcontext()
-        else:
-            ctx = self.store.pinned(plan.models_used)
+        pending = PendingBuild(doc_id=doc_id, requester=requester)
+        sink = (lambda rng, seg: pending.puts.append((rng, seg))) \
+            if materialize else None
+        pending.pin_token = self.store.pin(plan.models_used)
         caches = None
         t0 = time.perf_counter()
         try:
-            with ctx:
-                with obs.span("serve.assemble"):
-                    self.store.prefetch_ids(plan.models_used)
-                for st in steps:
-                    if st.model_id is not None:
-                        with obs.span("serve.assemble"):
-                            seg = self.store.get(st.model_id, requester=requester)
-                            seg_caches = self._segment_caches(seg)
-                            if caches is None:
-                                # plan anchor at 0: adopt a copy of the
-                                # segment, grown to the request capacity
-                                # (later steps write into it in place, SSD
-                                # state included; the stored copy stays
-                                # intact)
-                                caches = adopt_cache(seg_caches, cap)
-                            else:
-                                self._dispatch("insert", (cache_len(caches), seg.capacity))
-                                caches = insert_cache(caches, seg_caches, st.rng.lo)
-                        stats.tokens_reused += st.rng.size
-                    else:
-                        with obs.span("serve.extend"):
-                            caches = self._fill_gap(doc, st.rng, caches, cap, extras,
-                                                    stats=stats, sink=sink)
+            with obs.span("serve.assemble"):
+                self.store.prefetch_ids(plan.models_used)
+            for st in steps:
+                if st.model_id is not None:
+                    with obs.span("serve.assemble"):
+                        seg = self.store.get(st.model_id, requester=requester)
+                        seg_caches = self._segment_caches(seg)
+                        if caches is None:
+                            # plan anchor at 0: adopt a copy of the
+                            # segment, grown to the request capacity
+                            # (later steps write into it in place, SSD
+                            # state included; the stored copy stays
+                            # intact)
+                            caches = adopt_cache(seg_caches, cap)
+                        else:
+                            self._dispatch("insert", (cache_len(caches), seg.capacity))
+                            caches = insert_cache(caches, seg_caches, st.rng.lo)
+                    stats.tokens_reused += st.rng.size
+                else:
+                    with obs.span("serve.extend"):
+                        caches = self._fill_gap(doc, st.rng, caches, cap, extras,
+                                                stats=stats, sink=sink)
         except BaseException:
-            # the sync path's context manager releases its pins on any
-            # failure; a failed dispatch must not leak the deferred pins
+            # a failed dispatch must not leak its pins
             self.abandon_build(pending)
             raise
         if caches is not None:
             with obs.span("serve.assemble"):
                 caches = pad_cache_to(caches, cap)
-        if not defer:
-            _sync(self.device)
         stats.prefill_s += time.perf_counter() - t0
-        if defer:
-            return caches, plan, pending
-        return caches, plan
+        return caches, plan, pending
 
-    def abandon_build(self, pending: Optional[PendingBuild]) -> None:
-        """Release a deferred build's pins without landing its insertions
+    def finish(self, pending: PendingBuild, stats: ServeStats) -> None:
+        """Complete a dispatched build: land it (:meth:`finalize_build`)
+        and wait for the device, the time counted into ``prefill_s``."""
+        t0 = time.perf_counter()
+        self.finalize_build(pending)
+        _sync(self.device)
+        stats.prefill_s += time.perf_counter() - t0
+
+    def abandon_build(self, pending: PendingBuild) -> None:
+        """Release a dispatched build's pins without landing its insertions
         (the exception path of the dispatch phase: its trees may come from
         a failed computation; the next request re-prefills those chunks)."""
-        if pending is None or pending.finalized:
+        if pending.finalized:
             return
         pending.finalized = True
         pending.puts = []
         self.store.unpin(pending.pin_token)
 
-    def finalize_build(self, pending: Optional[PendingBuild]) -> None:
-        """Finalize phase of a deferred build: land the recorded chunk
+    def finalize_build(self, pending: PendingBuild) -> None:
+        """Finalize phase of a dispatched build: land the recorded chunk
         insertions in dispatch order and release the plan's pins.  Never
         waits on the device; a build is finalized at most once."""
-        if pending is None or pending.finalized:
+        if pending.finalized:
             return
         pending.finalized = True
         with obs.span("serve.store_put"):
@@ -372,17 +373,33 @@ class PrefixCacheBuilder:
                            extras: Optional[dict] = None,
                            stats: Optional[ServeStats] = None,
                            requester: Optional[int] = None,
-                           capacity: Optional[int] = None,
-                           defer: bool = False):
-        """Cache for [0, prefix_len) plus the logits of its last position.
+                           capacity: Optional[int] = None):
+        """Cache for [0, prefix_len) plus the logits of its last position,
+        the build landed and complete on the device
+        (:meth:`dispatch_prefix`, then :meth:`finish`).  Returns
+        ``(logits, caches, plan)``."""
+        stats = stats if stats is not None else ServeStats()
+        logits, caches, plan, pending = self.dispatch_prefix(
+            doc, prefix_len, doc_id=doc_id, extras=extras, stats=stats,
+            requester=requester, capacity=capacity)
+        self.finish(pending, stats)
+        return logits, caches, plan
+
+    def dispatch_prefix(self, doc: np.ndarray, prefix_len: int, *,
+                        doc_id: str = DEFAULT_DOC,
+                        extras: Optional[dict] = None,
+                        stats: Optional[ServeStats] = None,
+                        requester: Optional[int] = None,
+                        capacity: Optional[int] = None):
+        """Launch the build of [0, prefix_len) and the logits of its last
+        position without waiting for the device; returns ``(logits,
+        caches, plan, pending)``, ``pending`` for :meth:`finalize_build`
+        or :meth:`finish` (see :meth:`_dispatch_build`).
 
         The last prefix token runs through a 1-token extend so its logits
         (the first sampling distribution) come out of the pass that
         completes the cache.  Pass ``capacity`` (e.g. prefix_len + n_new)
         so the caches are already padded to the decode bucket.
-
-        ``defer=True`` returns ``(logits, caches, plan, pending)``: the
-        dispatch phase of an async prefill ticket (see :meth:`build_prefix`).
         """
         stats = stats if stats is not None else ServeStats()
         extras = extras or {}
@@ -392,20 +409,16 @@ class PrefixCacheBuilder:
             with obs.span("serve.extend"):
                 logits, caches = self.model.prefill(
                     self.params, {"tokens": self._tokens(doc[None, :prefix_len]), **extras})
-            if not defer:
-                _sync(self.device)
             stats.prefill_s += time.perf_counter() - t0
             stats.tokens_computed += prefix_len
             plan = baseline_plan(Range(0, prefix_len), self.cost)
-            if defer:   # nothing to insert or pin
-                return logits, caches, plan, PendingBuild(
-                    doc_id=doc_id, requester=requester)
-            return logits, caches, plan
-        built = self.build_prefix(
+            # nothing to insert or pin
+            return logits, caches, plan, PendingBuild(doc_id=doc_id,
+                                                      requester=requester)
+        caches, plan, pending = self._dispatch_build(
             doc, prefix_len - 1, doc_id=doc_id, extras=extras, stats=stats,
             materialize=True, requester=requester,
-            capacity=max(prefix_len, capacity or 0), defer=defer)
-        caches, plan = built[0], built[1]
+            capacity=max(prefix_len, capacity or 0))
         try:
             cur = cache_len(caches)
             assert cur == 0 or cur >= prefix_len, (
@@ -418,16 +431,12 @@ class PrefixCacheBuilder:
                     self._tokens(doc[None, prefix_len - 1:prefix_len]),
                     self._scalar(prefix_len - 1))
         except BaseException:
-            if defer:       # a failed boundary extend must not leak pins
-                self.abandon_build(built[2])
+            # a failed boundary extend must not leak pins
+            self.abandon_build(pending)
             raise
-        if not defer:
-            _sync(self.device)
         stats.prefill_s += time.perf_counter() - t0
         stats.tokens_computed += 1
-        if defer:
-            return logits, caches, plan, built[2]
-        return logits, caches, plan
+        return logits, caches, plan, pending
 
     def prefill_raw(self, batch):
         """From-scratch prefill (no planning, no materialization)."""

@@ -266,8 +266,8 @@ class SegmentStore(PinnedStore):
                  seq_bucket: int = 64,
                  host_budget: Optional[int] = None,
                  spill_dir: Optional[str | Path] = None,
-                 tier_policy: Optional[str] = None,
-                 precision: Optional[str] = None,
+                 tier_policy: str = "tiered",
+                 precision: str = "auto",
                  writer: Optional[BackgroundWriter] = None,
                  device=None) -> None:
         if cost_model is None:
@@ -293,8 +293,6 @@ class SegmentStore(PinnedStore):
         self._doc_stats: dict[str, list[int]] = {}
         self.host_budget = host_budget
         self.spill_dir = Path(spill_dir) if spill_dir is not None else None
-        if tier_policy is None:
-            tier_policy = os.environ.get("REPRO_TIER_POLICY", "tiered")
         if tier_policy not in TIER_POLICIES:
             raise ValueError(f"unknown tier policy {tier_policy!r}; "
                              f"expected one of {TIER_POLICIES}")
@@ -1008,8 +1006,8 @@ class SegmentStore(PinnedStore):
              policy: Optional[str] = None,
              host_budget: Optional[int] = None,
              spill_dir: Optional[str | Path] = None,
-             tier_policy: Optional[str] = None,
-             precision: Optional[str] = None,
+             tier_policy: str = "tiered",
+             precision: str = "auto",
              writer: Optional[BackgroundWriter] = None,
              verify: bool = True,
              device="cuda") -> "SegmentStore":

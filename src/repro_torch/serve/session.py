@@ -33,15 +33,15 @@ the continuation's index, so a follow-up request over generated context
 plans from the store.
 
 Pipelined serving: ``submit`` plans the prefix and dispatches its build
-without waiting (``PrefixCacheBuilder.build_prefix(defer=True)``), parking
+without waiting (``PrefixCacheBuilder.dispatch_prefix``), parking
 the session behind a :class:`PrefillTicket`.  The scheduler batches warm
 sessions while builds are in flight and joins a ticket before its
 session's first decode: when its CUDA event reports completion, or when
 nothing else can decode.  Store insertions of a build land in submit
 order at the next flush, and the plan's reuse segments stay pinned until
 then, so token streams and store contents are those of the synchronous
-loop (``async_prefill=False`` / ``REPRO_ASYNC_PREFILL=0``).  One stream
-carries all device work, in enqueue order.
+loop (``async_prefill=False``: ``submit`` lands each build and waits for
+it).  One stream carries all device work, in enqueue order.
 """
 from __future__ import annotations
 
@@ -58,8 +58,8 @@ from repro_torch import obs
 from repro_torch.core.cost import CostModel, serve_cost_model
 from repro_torch.core.descriptors import Range
 from repro_torch.core.optimizer import Plan
-from repro_torch.kernels.common import bucket_len
-from repro_torch.models.common import tree_map_with_path
+from repro_torch.kernels.common import bucket_len, uses_kernel
+from repro_torch.models.common import tree_leaves, tree_map_with_path
 
 from .engine import (PendingBuild, PrefixCacheBuilder, ServeStats, device_extras,
                      host_extras)
@@ -304,8 +304,8 @@ class SessionManager:
                  decode_bucket: int = 64,
                  max_batch: int = 8,
                  eviction_policy: Optional[str] = None,
-                 decode_materialize: Optional[bool] = None,
-                 async_prefill: Optional[bool] = None,
+                 decode_materialize: bool = True,
+                 async_prefill: bool = True,
                  merge_decode_packs: Optional[bool] = None,
                  store: Optional[SegmentStore] = None) -> None:
         self.model = model
@@ -342,12 +342,7 @@ class SessionManager:
                                           seq_bucket=decode_bucket,
                                           cost_model=self.cost)
         self.device = self.builder.device
-        if decode_materialize is None:
-            decode_materialize = os.environ.get(
-                "REPRO_DECODE_MATERIALIZE", "1") != "0"
         self.decode_materialize = decode_materialize
-        if async_prefill is None:
-            async_prefill = os.environ.get("REPRO_ASYNC_PREFILL", "1") != "0"
         self.async_prefill = async_prefill
         self.decode_bucket = decode_bucket
         self.max_batch = max_batch
@@ -360,7 +355,10 @@ class SessionManager:
         self._n_attn_layers, self._n_mla_layers = (sum(
             n * sum(1 for spec in period if spec.mixer == mixer)
             for period, n in model.segments) for mixer in ("attn", "mla"))
-        self._mla_kernel = torch.device(self.device).type == "cuda"
+        # the kernels' own routing: a decode step's caches share the
+        # parameters' device (its products mix them), so a parameter is
+        # routed as every pack's latents will be
+        self._mla_kernel = uses_kernel(tree_leaves(params)[0])
         if self._n_mla_layers and not self._n_attn_layers and not self._mla_kernel:
             self.decode_mode = "dense"
         # per-request counters live on each Session (folded into
@@ -443,10 +441,10 @@ class SessionManager:
             self._materialize_decode(s)
         with obs.span("serve.assemble"):
             self.store.prefetch(s.doc_id, upto=prefix_len)
+        logits, caches, plan, pending = self.builder.dispatch_prefix(
+            s.doc, prefix_len, doc_id=s.doc_id, extras=s.context, stats=s.stats,
+            requester=sid, capacity=prefix_len + n_new)
         if self.async_prefill:
-            logits, caches, plan, pending = self.builder.prefix_with_logits(
-                s.doc, prefix_len, doc_id=s.doc_id, extras=s.context, stats=s.stats,
-                requester=sid, capacity=prefix_len + n_new, defer=True)
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
@@ -457,15 +455,9 @@ class SessionManager:
                 pending=pending, event=event, submitted_s=time.perf_counter())
             self._tickets.append(s.ticket)
         else:
-            logits, caches, plan = self.builder.prefix_with_logits(
-                s.doc, prefix_len, doc_id=s.doc_id, extras=s.context, stats=s.stats,
-                requester=sid, capacity=prefix_len + n_new)
             # the monolithic loop: every decoding session stalls until this
-            # build has completed on the device
-            t0 = time.perf_counter()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            s.stats.prefill_s += time.perf_counter() - t0
+            # build has landed and completed on the device
+            self.builder.finish(pending, s.stats)
         s.caches = caches
         s.logits = logits
         s.greedy_next = None

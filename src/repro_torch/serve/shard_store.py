@@ -52,7 +52,6 @@ from __future__ import annotations
 import bisect
 import hashlib
 import json
-import os
 from pathlib import Path
 from typing import Optional
 
@@ -72,12 +71,12 @@ from repro_torch.serve.kv_cache import (
 WIRE_PRECISIONS = ("int8", "fp32")
 
 
-def resolve_wire_precision(value: Optional[str] = None) -> str:
-    v = value or os.environ.get("REPRO_WIRE_PRECISION", "int8")
-    if v not in WIRE_PRECISIONS:
-        raise ValueError(f"unknown wire precision {v!r}; "
+def resolve_wire_precision(value: str = "int8") -> str:
+    """A cross-shard payload precision, validated (default ``"int8"``)."""
+    if value not in WIRE_PRECISIONS:
+        raise ValueError(f"unknown wire precision {value!r}; "
                          f"expected one of {WIRE_PRECISIONS}")
-    return v
+    return value
 
 
 class HashRing:
@@ -176,15 +175,15 @@ class ShardedSegmentStore(SegmentStore):
                  seq_bucket: int = 64,
                  host_budget: Optional[int] = None,
                  spill_dir: Optional[str | Path] = None,
-                 tier_policy: Optional[str] = None,
-                 precision: Optional[str] = None,
+                 tier_policy: str = "tiered",
+                 precision: str = "auto",
                  writer: Optional[BackgroundWriter] = None,
                  transport: Optional[ShardTransport] = None,
                  bw_bytes_per_s: Optional[float] = None,
                  rtt_s: Optional[float] = None,
-                 hedge_deadline_s: Optional[float] = None,
+                 hedge_deadline_s: float = 0.05,
                  fetch: bool = True,
-                 wire_precision: Optional[str] = None,
+                 wire_precision: str = "int8",
                  fetch_cache_bytes: Optional[int] = None,
                  vnodes: int = 64,
                  device=None) -> None:
@@ -216,9 +215,6 @@ class ShardedSegmentStore(SegmentStore):
         self.transport = transport or ShardTransport(
             n_shards, bw_bytes_per_s=self.cost.wire_bytes_per_s,
             rtt_s=self.cost.wire_rtt_s)
-        if hedge_deadline_s is None:
-            hedge_deadline_s = float(
-                os.environ.get("REPRO_HEDGE_DEADLINE", "0.05"))
         self.hedge_deadline_s = hedge_deadline_s
         self.fetch_enabled = fetch
         self.wire_precision = resolve_wire_precision(wire_precision)

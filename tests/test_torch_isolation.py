@@ -3,7 +3,7 @@
 package, and the port's
 serving (sharded store and distribution layer included), analytics,
 sharding, multipod, mesh and checkpoint modules import with ``jax``
-blocked."""
+blocked.  The port reads no setting from the environment."""
 import ast
 import os
 import subprocess
@@ -36,6 +36,30 @@ def _imported_roots(path: Path):
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _environment_reads(path: Path):
+    """Lines of ``path`` that reach the process environment:
+    ``os.environ`` or ``os.getenv``, or either imported from ``os``."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")
+                and isinstance(node.value, ast.Name) and node.value.id == "os"):
+            yield node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module == "os" and any(
+                a.name in ("environ", "getenv") for a in node.names):
+            yield node.lineno
+
+
+def test_port_reads_no_environment():
+    """Serving modes are constructor arguments and CLI flags: no module
+    of the port reads the environment but the kernel build, which finds
+    the CUDA toolkit through ``CUDA_HOME``."""
+    build = ROOT / "src" / "repro_torch" / "kernels" / "build.py"
+    assert list(_environment_reads(build))          # the scan sees a read
+    reads = {str(p.relative_to(ROOT)): lines
+             for p in sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+             if p != build and (lines := list(_environment_reads(p)))}
+    assert reads == {}
 
 
 def test_port_imports_with_jax_blocked():

@@ -364,27 +364,32 @@ def test_async_prefill_snapshot_manifest_matches_sync(eviction_traces, tmp_path)
 
 
 def test_deferred_build_matches_sync_build(setup):
-    """``defer=True`` computes the sync path's caches and logits; its chunk
-    segments reach the store only at finalize, as the sync path's would."""
+    """``dispatch_prefix`` then ``finish`` computes ``prefix_with_logits``'
+    caches and logits; its chunk segments reach the store only at
+    finalize, which lands them once, and the store then holds the ids of
+    a ``ServeEngine`` built the same way."""
     doc_a = setup[3]
-    sync, deferred = _engine(setup, doc_a), _engine(setup, doc_a)
-    sync.generate(64, 2)
-    deferred.generate(64, 2)
-    want = sync.builder.prefix_with_logits(doc_a, 150, doc_id=sync.doc_id,
-                                           capacity=160)
-    b = deferred.builder
-    logits, caches, plan, pending = b.prefix_with_logits(
-        doc_a, 150, doc_id=deferred.doc_id, capacity=160, defer=True)
+    ref, split = _engine(setup, doc_a), _engine(setup, doc_a)
+    ref.generate(64, 2)
+    split.generate(64, 2)
+    want = ref.builder.prefix_with_logits(doc_a, 150, doc_id=ref.doc_id,
+                                          capacity=160)
+    b = split.builder
+    before = sorted(split.store._segs)
+    logits, caches, plan, pending = b.dispatch_prefix(
+        doc_a, 150, doc_id=split.doc_id, capacity=160)
     assert plan.models_used == want[2].models_used and plan.models_used
     assert set(pending.pin_token) == set(plan.models_used) <= set(b.store._pins)
-    assert pending.puts and len(deferred.store) < len(sync.store)
+    assert pending.puts and sorted(split.store._segs) == before
     assert torch.equal(logits, want[0])
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(caches),
                                                  tree_leaves(want[1])))
-    b.finalize_build(pending)
+    b.finish(pending, split.stats)
+    landed = sorted(split.store._segs)
     b.finalize_build(pending)                     # idempotent
-    assert sorted(deferred.store._segs) == sorted(sync.store._segs)
-    assert b.store._pins == {}
+    b.finish(pending, split.stats)
+    assert sorted(split.store._segs) == landed == sorted(ref.store._segs)
+    assert len(landed) > len(before) and b.store._pins == {}
 
 
 def test_ticket_pins_protect_unjoined_build(setup):
@@ -419,8 +424,8 @@ def test_failed_deferred_build_releases_pins(setup, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(mgr.builder.model, "prefill_extend", boom)
         with pytest.raises(RuntimeError, match="dispatch failed"):
-            mgr.builder.prefix_with_logits(
-                setup[3], 96, doc_id=mgr.sessions[sid].doc_id, defer=True)
+            mgr.builder.dispatch_prefix(
+                setup[3], 96, doc_id=mgr.sessions[sid].doc_id)
     assert mgr.store._pins == {}
     mgr.submit(sid, 96, 2)
     assert len(mgr.run()[sid]) == 2

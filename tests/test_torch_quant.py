@@ -176,11 +176,11 @@ def test_quantize_tree_of_int8_is_a_noop():
 
 
 def test_resolve_precision_env_and_validation(monkeypatch):
+    """The port's precision is its argument's, ``"auto"`` by default;
+    ``REPRO_SEGMENT_PRECISION`` is not read."""
     assert tq.PRECISIONS == jq.PRECISIONS
-    monkeypatch.delenv("REPRO_SEGMENT_PRECISION", raising=False)
-    assert tq.resolve_precision(None) == "auto"
     monkeypatch.setenv("REPRO_SEGMENT_PRECISION", "fp32")
-    assert tq.resolve_precision(None) == "fp32" == jq.resolve_precision(None)
+    assert tq.resolve_precision() == "auto"
     assert tq.resolve_precision("int8") == "int8"
     with pytest.raises(ValueError, match="segment precision"):
         tq.resolve_precision("fp16")

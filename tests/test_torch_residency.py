@@ -313,14 +313,22 @@ def test_bf16_segments_round_trip_every_tier_bitwise(tmp_path):
 
 
 def test_tier_policy_env_override(monkeypatch):
+    """The tier policy is the argument's, ``"tiered"`` by default, and
+    an unknown one is refused; ``REPRO_TIER_POLICY`` is not read."""
     monkeypatch.setenv("REPRO_TIER_POLICY", "evict")
-    assert SegmentStore(seq_bucket=8).tier_policy == "evict"
+    assert SegmentStore(seq_bucket=8).tier_policy == "tiered"
+    assert SegmentStore(seq_bucket=8, tier_policy="evict").tier_policy == "evict"
     monkeypatch.setenv("REPRO_TIER_POLICY", "bogus")
+    assert SegmentStore(seq_bucket=8).tier_policy == "tiered"
     with pytest.raises(ValueError, match="tier policy"):
-        SegmentStore(seq_bucket=8)
+        SegmentStore(seq_bucket=8, tier_policy="bogus")
 
 
 def test_precision_env_override(monkeypatch):
+    """The store's precision is the argument's, ``"auto"`` by default;
+    ``REPRO_SEGMENT_PRECISION`` is not read."""
     monkeypatch.setenv("REPRO_SEGMENT_PRECISION", "int8")
-    assert SegmentStore(seq_bucket=8).precision == "int8"
+    assert SegmentStore(seq_bucket=8).precision == "auto"
     assert SegmentStore(seq_bucket=8, precision="fp32").precision == "fp32"
+    with pytest.raises(ValueError, match="segment precision"):
+        SegmentStore(seq_bucket=8, precision="fp16")

@@ -177,11 +177,11 @@ class TestWireCodec:
         assert torch.equal(out.caches["k"], x)
 
     def test_resolve_wire_precision(self, monkeypatch):
-        assert resolve_wire_precision("fp32") == "fp32"
-        monkeypatch.delenv("REPRO_WIRE_PRECISION", raising=False)
-        assert resolve_wire_precision() == "int8"
+        """The wire precision is the argument's, ``"int8"`` by default;
+        ``REPRO_WIRE_PRECISION`` is not read."""
         monkeypatch.setenv("REPRO_WIRE_PRECISION", "fp32")
-        assert resolve_wire_precision() == "fp32"
+        assert resolve_wire_precision() == "int8"
+        assert resolve_wire_precision("fp32") == "fp32"
         with pytest.raises(ValueError, match="wire precision"):
             resolve_wire_precision("fp16")
 
