@@ -42,7 +42,8 @@ from repro_torch.core.optimizer import Plan, baseline_plan, shortest_plan
 from repro_torch.kernels.common import bucket_len
 
 from .kv_cache import (DEFAULT_DOC, SegmentStore, adopt_cache, cache_len,
-                       chunk_segment, insert_cache, pad_cache_to, slice_cache)
+                       chunk_segment, holds_state, insert_cache, pad_cache_to,
+                       slice_cache)
 
 
 @dataclass
@@ -148,6 +149,11 @@ class PrefixCacheBuilder:
         #: reuse steps served from a cross-shard fetch (0 off the sharded
         #: store, which alone marks segments ``fetched``)
         self.fetched_segments = 0
+        #: :meth:`dispatch_prefix` calls (prefix_len ≥ 2) whose last prefix
+        #: token rode the plan's ragged last gap, and those whose token ran
+        #: in a 1-token extend of its own
+        self.boundary_merged = 0
+        self.boundary_alone = 0
 
     def _segment_caches(self, seg):
         """A reuse segment's caches at model precision.
@@ -175,6 +181,13 @@ class PrefixCacheBuilder:
     def extend_lowerings(self) -> int:
         """Total distinct prefill/extend/insert shapes dispatched so far."""
         return sum(self.lowerings.values())
+
+    @property
+    def boundary_merged_share(self) -> float:
+        """Share of :meth:`dispatch_prefix` calls (prefix_len ≥ 2) whose
+        last prefix token rode the ragged last gap's extend."""
+        n = self.boundary_merged + self.boundary_alone
+        return self.boundary_merged / n if n else 0.0
 
     def _tokens(self, toks) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(toks, np.int64))
@@ -216,7 +229,7 @@ class PrefixCacheBuilder:
         join the batch of a cold prefill.
         """
         stats = stats if stats is not None else ServeStats()
-        caches, plan, pending = self._dispatch_build(
+        caches, plan, pending, _ = self._dispatch_build(
             doc, length, doc_id=doc_id, extras=extras or {}, stats=stats,
             materialize=materialize, requester=requester, capacity=capacity)
         self.finish(pending, stats)
@@ -224,7 +237,8 @@ class PrefixCacheBuilder:
 
     def _dispatch_build(self, doc, length: int, *, doc_id: str, extras: dict,
                         stats: ServeStats, materialize: bool,
-                        requester: Optional[int], capacity: Optional[int]):
+                        requester: Optional[int], capacity: Optional[int],
+                        boundary: bool = False):
         """Launch the build of document[:length] without waiting for the
         device (``prefill_s`` counts dispatch time only).
 
@@ -233,8 +247,10 @@ class PrefixCacheBuilder:
         segment is recorded on the returned :class:`PendingBuild` (none
         when ``materialize`` is False), and the plan's reuse segments stay
         pinned under its ``pin_token`` until :meth:`finalize_build`, which
-        must run before any *other* store insertion.  Returns
-        ``(caches, plan, pending)``.
+        must run before any *other* store insertion.  With ``boundary``
+        the plan's last gap may also take the token at ``length`` and
+        return its logits (:meth:`_fill_gap`).  Returns ``(caches, plan,
+        pending, logits)``, ``logits`` None unless that gap took it.
         """
         plan = self.plan_prefix(length, doc_id=doc_id, stats=stats)
         steps = sorted(plan.steps, key=lambda s: s.rng.lo)  # DAG path is ordered
@@ -249,7 +265,7 @@ class PrefixCacheBuilder:
         sink = (lambda rng, seg: pending.puts.append((rng, seg))) \
             if materialize else None
         pending.pin_token = self.store.pin(plan.models_used)
-        caches = None
+        caches = logits = None
         t0 = time.perf_counter()
         try:
             with obs.span("serve.assemble"):
@@ -272,8 +288,9 @@ class PrefixCacheBuilder:
                     stats.tokens_reused += st.rng.size
                 else:
                     with obs.span("serve.extend"):
-                        caches = self._fill_gap(doc, st.rng, caches, cap, extras,
-                                                stats=stats, sink=sink)
+                        caches, logits = self._fill_gap(
+                            doc, st.rng, caches, cap, extras, stats=stats,
+                            sink=sink, boundary=boundary and st is steps[-1])
         except BaseException:
             # a failed dispatch must not leak its pins
             self.abandon_build(pending)
@@ -282,7 +299,7 @@ class PrefixCacheBuilder:
             with obs.span("serve.assemble"):
                 caches = pad_cache_to(caches, cap)
         stats.prefill_s += time.perf_counter() - t0
-        return caches, plan, pending
+        return caches, plan, pending, logits
 
     def finish(self, pending: PendingBuild, stats: ServeStats) -> None:
         """Complete a dispatched build: land it (:meth:`finalize_build`)
@@ -317,13 +334,20 @@ class PrefixCacheBuilder:
         self.store.unpin(pending.pin_token)
 
     def _fill_gap(self, doc, rng: Range, caches, cap: int, extras, *,
-                  stats, sink):
+                  stats, sink, boundary: bool):
         """Prefill one uncovered plan step [rng.lo, rng.hi) into ``caches``.
 
         Full chunks run as one ``prefill_extend_many`` call; at most one
         ragged remainder runs as one ``prefill_extend``.  Only a cold start
         at position 0 uses ``prefill``.  ``sink`` receives each chunk's
         materialized segment (None = don't materialize).
+
+        With ``boundary`` the remainder's extend runs one token further,
+        over [lo, rng.hi + 1), and its last-position logits, those of the
+        token at ``rng.hi``, are returned; its segment is still [lo,
+        rng.hi).  A tree with running state keeps its remainder to
+        [lo, rng.hi): the stored segment carries the state at its end.
+        Returns ``(caches, logits or None)``.
         """
         lo, hi = rng.lo, rng.hi
         if caches is None and lo == 0:
@@ -336,11 +360,12 @@ class PrefixCacheBuilder:
             stats.tokens_computed += first
             lo = first
             if lo >= hi:
-                return caches
+                return caches, None
         caches = pad_cache_to(caches, cap)
+        end = hi + 1 if boundary and not holds_state(caches) else hi
         # writes past the capacity would corrupt the cache: check on host
         cur = cache_len(caches)
-        assert cur == 0 or cur >= hi, f"cache capacity {cur} < gap end {hi}"
+        assert cur == 0 or cur >= end, f"cache capacity {cur} < extend end {end}"
         n_full = (hi - lo) // self.chunk
         if n_full:
             n_slots = cap // self.chunk
@@ -359,14 +384,16 @@ class PrefixCacheBuilder:
             stats.tokens_computed += n_full * self.chunk
             lo += n_full * self.chunk
         if lo < hi:                              # ragged remainder chunk
-            self._dispatch("extend", (cache_len(caches), hi - lo))
-            _, caches = self.model.prefill_extend(
-                self.params, caches, self._tokens(doc[None, lo:hi]),
+            self._dispatch("extend", (cache_len(caches), end - lo))
+            logits, caches = self.model.prefill_extend(
+                self.params, caches, self._tokens(doc[None, lo:end]),
                 self._scalar(lo))
             if sink is not None:
                 sink(Range(lo, hi), slice_cache(caches, lo, hi))
-            stats.tokens_computed += hi - lo
-        return caches
+            stats.tokens_computed += end - lo
+            if end > hi:
+                return caches, logits
+        return caches, None
 
     def prefix_with_logits(self, doc: np.ndarray, prefix_len: int, *,
                            doc_id: str = DEFAULT_DOC,
@@ -396,10 +423,14 @@ class PrefixCacheBuilder:
         caches, plan, pending)``, ``pending`` for :meth:`finalize_build`
         or :meth:`finish` (see :meth:`_dispatch_build`).
 
-        The last prefix token runs through a 1-token extend so its logits
+        The plan covers [0, prefix_len - 1); the last prefix token's logits
         (the first sampling distribution) come out of the pass that
-        completes the cache.  Pass ``capacity`` (e.g. prefix_len + n_new)
-        so the caches are already padded to the decode bucket.
+        completes the cache.  Where the plan ends in a ragged gap, that
+        gap's extend takes the token too; otherwise (the plan ends on a
+        reuse step or a whole chunk, or the tree holds running state) the
+        token runs through a 1-token extend of its own.  Pass ``capacity``
+        (e.g. prefix_len + n_new) so the caches are already padded to the
+        decode bucket.
         """
         stats = stats if stats is not None else ServeStats()
         extras = extras or {}
@@ -415,10 +446,14 @@ class PrefixCacheBuilder:
             # nothing to insert or pin
             return logits, caches, plan, PendingBuild(doc_id=doc_id,
                                                       requester=requester)
-        caches, plan, pending = self._dispatch_build(
+        caches, plan, pending, logits = self._dispatch_build(
             doc, prefix_len - 1, doc_id=doc_id, extras=extras, stats=stats,
             materialize=True, requester=requester,
-            capacity=max(prefix_len, capacity or 0))
+            capacity=max(prefix_len, capacity or 0), boundary=True)
+        if logits is not None:
+            self.boundary_merged += 1
+            return logits, caches, plan, pending
+        self.boundary_alone += 1
         try:
             cur = cache_len(caches)
             assert cur == 0 or cur >= prefix_len, (

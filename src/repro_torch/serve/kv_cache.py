@@ -51,7 +51,8 @@ from repro_torch.kernels.common import bucket_len
 from repro_torch.models.common import CACHE_SEQ_KEYS as SEQ_KEYS
 from repro_torch.models.common import CACHE_STATE_KEYS as STATE_KEYS
 from repro_torch.models.common import cache_leaf_key as _leaf_key
-from repro_torch.models.common import tree_leaves, tree_map_with_path
+from repro_torch.models.common import (tree_items_sorted, tree_leaves,
+                                       tree_map_with_path)
 
 
 def slice_cache(caches, lo: int, hi: int, *, base: int = 0):
@@ -161,6 +162,12 @@ def chunk_segment(caches, chunk_states, i: int, lo: int, hi: int):
             return snap[i].clone()
         return s
     return tree_map_with_path(f, seg, chunk_states)
+
+
+def holds_state(caches) -> bool:
+    """Whether the tree has a running-state leaf (SSD conv / ssm), whose
+    value is the state at the end of what was last processed."""
+    return any(_leaf_key(p) in STATE_KEYS for p, _ in tree_items_sorted(caches))
 
 
 def cache_nbytes(caches) -> int:

@@ -277,10 +277,13 @@ _SINGLE_SHARD = {
 
 
 #: the keys ``report()`` adds after ``repro``'s: the pack pool's reuses and
-#: their share of pack builds, and the decode calls replayed from a CUDA
-#: graph, the calls that captured one, and the replays' share of the calls
+#: their share of pack builds, the decode calls replayed from a CUDA graph,
+#: the calls that captured one, and the replays' share of the calls, and
+#: the share of prefix builds whose last token rode the ragged last gap's
+#: extend (``PrefixCacheBuilder.boundary_merged_share``)
 PORT_REPORT_KEYS = ("pack_reuses", "pack_reuse_share", "decode_graph_replays",
-                    "decode_graph_captures", "decode_graph_hit_share")
+                    "decode_graph_captures", "decode_graph_hit_share",
+                    "boundary_merged_share")
 
 
 class SessionManager:
@@ -913,6 +916,7 @@ class SessionManager:
             "decode_graph_replays": sc.decode_replays,
             "decode_graph_captures": sc.decode_captures,
             "decode_graph_hit_share": sc.decode_graph_hit_share,
+            "boundary_merged_share": self.builder.boundary_merged_share,
         }
 
 
